@@ -1,0 +1,136 @@
+"""Console entry point (reference: src/main.cpp:59-159, 376-459, 464-579).
+
+Usage:
+    python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
+
+Runs on the first CUDA device unless ``--platform cpu`` is given, in which
+case the plain PyTorch versions of the kernels run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="hipims-tpu-torch",
+        description="2D shallow-water flood simulator (PyTorch + CUDA)")
+    ap.add_argument("--config-file", "-c", required=True,
+                    help="XML configuration file (HiPIMS schema)")
+    ap.add_argument("--log-file", "-l", default=None)
+    ap.add_argument("--quiet-mode", "-q", "-s", action="store_true",
+                    help="no user feedback (-s is the reference's alias)")
+    ap.add_argument("--disable-screen", "-n", action="store_true",
+                    help="plain line-by-line progress output")
+    ap.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
+                    help="gpu (default: the first CUDA device) or cpu "
+                         "(plain PyTorch versions of the kernels)")
+    ap.add_argument("--precision", default=None,
+                    choices=("double", "float", "compensated"),
+                    help="override the XML floatingPointPrecision")
+    ap.add_argument("--mass-balance", action="store_true",
+                    help="log the domain water volume at every output time")
+    ap.add_argument("--io-mode", default=None,
+                    choices=("auto", "gather", "stream"),
+                    help="output gathering; only 'gather' is ported")
+    # Accepted so that a JAX command line fails with a clear message.
+    for flag in ("--mesh", "--mesh-shape", "--distributed", "--checkpoint",
+                 "--resume"):
+        ap.add_argument(flag, default=None, help="not yet ported")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from .io.xml_config import load_config
+    from .runtime.progress import ProgressReporter
+    from .utils.logging import Logger
+
+    log = Logger(path=args.log_file, quiet=args.quiet_mode)
+    log.block("Model configuration")
+    unported = [f"--{k.replace('_', '-')}" for k in
+                ("mesh", "mesh_shape", "distributed", "checkpoint", "resume")
+                if getattr(args, k) is not None]
+    if args.io_mode == "stream":
+        unported.append("--io-mode stream")
+    if unported:
+        log.error(f"{', '.join(unported)}: not yet ported to "
+                  "hipims_tpu_torch (ROADMAP.md, queue 1)")
+        return 1
+
+    try:
+        model = load_config(args.config_file)
+    except FileNotFoundError as e:
+        log.error(f"Cannot open model file: {e.filename or e}")
+        return 1
+    except (ValueError, KeyError) as e:
+        log.error(f"Invalid model configuration: {e}")
+        return 1
+
+    if args.platform == "gpu":
+        if not torch.cuda.is_available():
+            log.error("--platform gpu: CUDA is not available (no device or "
+                      "a CPU-only PyTorch); pass --platform cpu to run the "
+                      "plain versions on the CPU")
+            return 1
+        device = torch.device("cuda", 0)
+    else:
+        device = torch.device("cpu")
+
+    log.line(f"  Name:        {model.name}")
+    log.line(f"  Scheme:      {model.config.scheme}")
+    log.line(f"  Duration:    {model.config.duration:.0f} s")
+    log.line(f"  Output freq: {model.config.output_frequency:.0f} s")
+    if args.precision:
+        model.config.dtype = {"double": "float64", "float": "float32",
+                              "compensated": "float32c"}[args.precision]
+    if args.io_mode:
+        model.config.io_mode = args.io_mode
+    log.line(f"  Grid:        {model.domain.rows} x {model.domain.cols} "
+             f"@ {model.domain.dx} m")
+    log.line(f"  Precision:   {model.config.dtype}")
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    log.line(f"  Device:      {device} ({name})")
+
+    try:
+        sim = model.simulation(device=device)
+    except (ValueError, NotImplementedError) as e:
+        log.error(f"Invalid model configuration: {e}")
+        return 1
+    if args.mass_balance:
+        from .runtime.output import domain_volume
+        inner_writer = sim.output_writer
+        vol0 = sim.volume()
+
+        def mass_writer(view, t):
+            if inner_writer is not None:
+                inner_writer(view, t)
+            vol = domain_volume(view, sim.domain)
+            log.line(f"  Mass balance: t={t:.1f}s volume={vol:.3f} m3 "
+                     f"(delta {vol - vol0:+.3f} vs start)")
+
+        sim.output_writer = mass_writer
+    reporter = ProgressReporter(log, sim, quiet=args.quiet_mode)
+
+    log.block("Simulation")
+    t0 = time.monotonic()
+    try:
+        sim.run(progress=reporter)
+    except KeyboardInterrupt:
+        log.line("Interrupted — writing final state")
+        sim.emit_output(sim.t)
+        return 2
+    wall = time.monotonic() - t0
+    reporter.final(wall)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

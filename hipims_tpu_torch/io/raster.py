@@ -1,0 +1,417 @@
+"""Raster read/write without GDAL.
+
+Formats:
+  * ESRI ASCII grid (.asc)        — read + write
+  * GeoTIFF (.tif/.tiff)          — read (classic + BigTIFF;
+                                    uncompressed/deflate strips or tiles)
+                                    + write (deflate-compressed float32
+                                    strips, streaming-capable, auto-BigTIFF
+                                    past 4 GB, GeoTIFF georeferencing
+                                    + GDAL nodata tag)
+
+A numpy-only copy of hipims_tpu/io/raster.py (the port never imports the
+JAX package).  Erdas Imagine HFA (.img) is not ported yet (ROADMAP.md,
+queue 1).  Replaces the reference's CRasterDataset GDAL wrapper
+(src/Datasets/CRasterDataset.cpp:73-315 read, :101-290 write).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+import zlib
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Raster:
+    """A single-band georeferenced grid in map orientation (row 0 = north)."""
+
+    data: np.ndarray
+    xll: float = 0.0            # lower-left corner x
+    yll: float = 0.0            # lower-left corner y
+    cell_size: float = 1.0
+    nodata: Optional[float] = -9999.0
+
+    @property
+    def rows(self):
+        return self.data.shape[0]
+
+    @property
+    def cols(self):
+        return self.data.shape[1]
+
+    def to_domain_array(self) -> np.ndarray:
+        """Domain orientation: row 0 = south (reference bottom-up flip,
+        src/Datasets/CRasterDataset.cpp applyDataToDomain)."""
+        return np.ascontiguousarray(self.data[::-1, :])
+
+    @classmethod
+    def from_domain_array(cls, arr, xll=0.0, yll=0.0, cell_size=1.0,
+                          nodata=-9999.0) -> "Raster":
+        return cls(data=np.ascontiguousarray(np.asarray(arr)[::-1, :]),
+                   xll=xll, yll=yll, cell_size=cell_size, nodata=nodata)
+
+
+# ---------------------------------------------------------------- ASC ----
+
+def _read_asc(path: Path) -> Raster:
+    header = {}
+    data_start = 0
+    with open(path) as f:
+        lines = f.readlines()
+    for i, line in enumerate(lines):
+        parts = line.split()
+        if len(parts) == 2 and parts[0].lower() in (
+                "ncols", "nrows", "xllcorner", "yllcorner", "cellsize",
+                "nodata_value", "xllcenter", "yllcenter"):
+            header[parts[0].lower()] = float(parts[1])
+        else:
+            data_start = i
+            break
+    rows = int(header["nrows"])
+    cols = int(header["ncols"])
+    data = np.loadtxt(lines[data_start:]).reshape(rows, cols)
+    cs = header.get("cellsize", 1.0)
+    xll = header.get("xllcorner", header.get("xllcenter", 0.0)
+                    - cs / 2 if "xllcenter" in header else 0.0)
+    yll = header.get("yllcorner", header.get("yllcenter", 0.0)
+                    - cs / 2 if "yllcenter" in header else 0.0)
+    return Raster(data=data, xll=xll, yll=yll, cell_size=cs,
+                  nodata=header.get("nodata_value", -9999.0))
+
+
+def _write_asc(path: Path, raster: Raster):
+    header = (f"ncols {raster.cols}\n"
+              f"nrows {raster.rows}\n"
+              f"xllcorner {raster.xll}\n"
+              f"yllcorner {raster.yll}\n"
+              f"cellsize {raster.cell_size}\n"
+              f"NODATA_value {raster.nodata}\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        np.savetxt(f, np.asarray(raster.data, dtype=np.float64), fmt="%.6f")
+
+
+# ------------------------------------------------------------- GeoTIFF ----
+
+_TIFF_TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("I", 4),
+               5: ("II", 8), 11: ("f", 4), 12: ("d", 8), 16: ("Q", 8),
+               17: ("q", 8), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8)}
+
+TAG_WIDTH, TAG_HEIGHT = 256, 257
+TAG_BITS, TAG_COMPRESSION, TAG_PHOTOMETRIC = 258, 259, 262
+TAG_STRIP_OFFSETS, TAG_SAMPLES_PER_PIXEL = 273, 277
+TAG_ROWS_PER_STRIP, TAG_STRIP_BYTECOUNTS = 278, 279
+TAG_PLANAR = 284
+TAG_PREDICTOR = 317
+TAG_TILE_WIDTH, TAG_TILE_HEIGHT = 322, 323
+TAG_TILE_OFFSETS, TAG_TILE_BYTECOUNTS = 324, 325
+TAG_SAMPLE_FORMAT = 339
+TAG_MODEL_PIXEL_SCALE, TAG_MODEL_TIEPOINT = 33550, 33922
+TAG_GDAL_NODATA = 42113
+
+
+def _read_tiff(path: Path) -> Raster:
+    buf = open(path, "rb").read()
+    endian = buf[:2]
+    if endian == b"II":
+        e = "<"
+    elif endian == b"MM":
+        e = ">"
+    else:
+        raise ValueError(f"{path}: not a TIFF")
+    (magic,) = struct.unpack(e + "H", buf[2:4])
+    if magic == 42:                       # classic TIFF
+        big = False
+        (ifd_off,) = struct.unpack(e + "I", buf[4:8])
+    elif magic == 43:                     # BigTIFF
+        big = True
+        osize, zero, ifd_off = struct.unpack(e + "HHQ", buf[4:16])
+        if osize != 8 or zero != 0:
+            raise ValueError(f"{path}: malformed BigTIFF header")
+    else:
+        raise ValueError(f"{path}: unsupported TIFF magic {magic}")
+
+    tags = {}
+    if big:
+        (n_entries,) = struct.unpack(e + "Q", buf[ifd_off:ifd_off + 8])
+        ent0, ent_size, inline = ifd_off + 8, 20, 8
+    else:
+        (n_entries,) = struct.unpack(e + "H", buf[ifd_off:ifd_off + 2])
+        ent0, ent_size, inline = ifd_off + 2, 12, 4
+    for i in range(n_entries):
+        off = ent0 + i * ent_size
+        if big:
+            tag, typ, count = struct.unpack(e + "HHQ", buf[off:off + 12])
+        else:
+            tag, typ, count = struct.unpack(e + "HHI", buf[off:off + 8])
+        fmt, size = _TIFF_TYPES.get(typ, ("B", 1))
+        total = size * count
+        val_off = off + (12 if big else 8)
+        if total <= inline:
+            raw = buf[val_off:val_off + total]
+        else:
+            (ptr,) = struct.unpack(e + ("Q" if big else "I"),
+                                   buf[val_off:val_off + inline])
+            raw = buf[ptr:ptr + total]
+        if typ == 2:
+            tags[tag] = raw.rstrip(b"\0").decode("ascii", "replace")
+        elif typ in (5, 10):
+            vals = struct.unpack(e + "II" * count, raw)
+            tags[tag] = [vals[2 * k] / max(vals[2 * k + 1], 1)
+                         for k in range(count)]
+        else:
+            tags[tag] = list(struct.unpack(e + fmt * count, raw))
+
+    width = tags[TAG_WIDTH][0]
+    height = tags[TAG_HEIGHT][0]
+    bits = tags.get(TAG_BITS, [32])[0]
+    comp = tags.get(TAG_COMPRESSION, [1])[0]
+    fmt_code = tags.get(TAG_SAMPLE_FORMAT, [3])[0]
+    if tags.get(TAG_SAMPLES_PER_PIXEL, [1])[0] != 1:
+        raise ValueError("only single-band TIFFs supported")
+
+    if fmt_code == 3:
+        dt = {32: np.float32, 64: np.float64}[bits]
+    elif fmt_code == 2:
+        dt = {8: np.int8, 16: np.int16, 32: np.int32}[bits]
+    else:
+        dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bits]
+    dt = np.dtype(dt).newbyteorder(e)
+
+    def decode(chunk):
+        if comp == 1:
+            return chunk
+        if comp in (8, 32946):          # deflate
+            return zlib.decompress(chunk)
+        raise ValueError(f"unsupported TIFF compression {comp}")
+
+    if TAG_TILE_OFFSETS in tags:
+        tw = tags[TAG_TILE_WIDTH][0]
+        th = tags[TAG_TILE_HEIGHT][0]
+        data = np.zeros((height, width), dtype=dt)
+        tiles_x = -(-width // tw)
+        offs = tags[TAG_TILE_OFFSETS]
+        cnts = tags[TAG_TILE_BYTECOUNTS]
+        for idx, (o, c) in enumerate(zip(offs, cnts)):
+            ty, tx = divmod(idx, tiles_x)
+            tile = np.frombuffer(decode(buf[o:o + c]), dtype=dt)
+            tile = tile[:tw * th].reshape(th, tw)
+            y0, x0 = ty * th, tx * tw
+            data[y0:y0 + th, x0:x0 + tw] = tile[
+                :min(th, height - y0), :min(tw, width - x0)]
+    else:
+        rps = tags.get(TAG_ROWS_PER_STRIP, [height])[0]
+        offs = tags[TAG_STRIP_OFFSETS]
+        cnts = tags.get(TAG_STRIP_BYTECOUNTS,
+                        [width * rps * dt.itemsize] * len(offs))
+        parts = []
+        for o, c in zip(offs, cnts):
+            parts.append(np.frombuffer(decode(buf[o:o + c]), dtype=dt))
+        data = np.concatenate(parts)[:height * width].reshape(height, width)
+
+    if tags.get(TAG_PREDICTOR, [1])[0] != 1:
+        raise ValueError("TIFF predictor not supported")
+
+    cell = tags.get(TAG_MODEL_PIXEL_SCALE, [1.0, 1.0])[0]
+    tie = tags.get(TAG_MODEL_TIEPOINT, [0.0] * 6)
+    # Tiepoint maps raster (0,0) [top-left] to world (tie[3], tie[4]).
+    xul, yul = tie[3], tie[4]
+    nodata = tags.get(TAG_GDAL_NODATA)
+    nodata = float(nodata) if nodata is not None else None
+    return Raster(data=np.ascontiguousarray(data.astype(data.dtype.newbyteorder("="))),
+                  xll=xul, yll=yul - height * cell, cell_size=cell,
+                  nodata=nodata)
+
+
+class TiffStripWriter:
+    """Incremental single-band GeoTIFF writer: rows stream in (top-down,
+    map orientation), strips are deflate-compressed and written as they
+    complete, and the IFD is appended at close — so peak memory is one
+    strip, never the full grid (the sharded-output path feeds this with
+    bounded row chunks; see runtime/sharded_io.py).
+
+    Replaces the GDAL-backed writes of the reference
+    (src/Datasets/CRasterDataset.cpp:101-290) including their deflate
+    compression; ``bigtiff=None`` auto-switches to BigTIFF when the
+    uncompressed payload could exceed the classic 4 GB offset space."""
+
+    def __init__(self, path, width, height, xll=0.0, yll=0.0,
+                 cell_size=1.0, nodata=-9999.0, compress="deflate",
+                 rows_per_strip=None, bigtiff=None):
+        self.width, self.height = int(width), int(height)
+        self.cell_size, self.xll, self.yll = cell_size, xll, yll
+        self.nodata = nodata
+        self.compress = compress
+        if rows_per_strip is None:
+            # ~2 MB of uncompressed f32 per strip.
+            rows_per_strip = max(1, (2 << 20) // max(self.width * 4, 1))
+        self.rows_per_strip = min(rows_per_strip, self.height)
+        payload = self.width * self.height * 4
+        if bigtiff is None:
+            bigtiff = payload > (1 << 32) - (1 << 24)
+        self.big = bool(bigtiff)
+        self._f = open(path, "wb")
+        if self.big:
+            self._f.write(b"II" + struct.pack("<HHHQ", 43, 8, 0, 0))
+        else:
+            self._f.write(b"II" + struct.pack("<HI", 42, 0))
+        self._pos = self._f.tell()
+        self._pending = np.empty((0, self.width), np.float32)
+        self._offsets = []
+        self._counts = []
+        self._rows_in = 0
+
+    def write_rows(self, block):
+        """Append rows (map orientation: first call holds the NORTHERNMOST
+        rows)."""
+        block = np.ascontiguousarray(np.asarray(block, np.float32))
+        if block.ndim == 1:
+            block = block[None, :]
+        # Real exceptions, not asserts: a short/wide-fed writer must fail
+        # loudly (python -O would strip asserts and emit a corrupt file).
+        if block.shape[1] != self.width:
+            raise ValueError(f"row width {block.shape[1]} != declared "
+                             f"{self.width}")
+        self._rows_in += block.shape[0]
+        if self._rows_in > self.height:
+            raise ValueError(f"received {self._rows_in} rows for a "
+                             f"{self.height}-row raster")
+        self._pending = (block if not self._pending.size
+                         else np.concatenate([self._pending, block]))
+        rps = self.rows_per_strip
+        while (self._pending.shape[0] >= rps
+               or (self._rows_in == self.height and self._pending.size)):
+            strip, self._pending = self._pending[:rps], self._pending[rps:]
+            raw = strip.tobytes()
+            if self.compress == "deflate":
+                raw = zlib.compress(raw, 6)
+            self._offsets.append(self._pos)
+            self._counts.append(len(raw))
+            self._f.write(raw)
+            self._pos += len(raw)
+            if self._pos % 2:
+                # TIFF 6.0: all offsets must be word-aligned; compressed
+                # strip lengths are arbitrary, so pad (byte counts keep
+                # the true strip length).
+                self._f.write(b"\0")
+                self._pos += 1
+
+    def close(self):
+        if self._rows_in != self.height:
+            raise ValueError(f"wrote {self._rows_in} of {self.height} "
+                             "rows; refusing to emit a truncated TIFF")
+        e = "<"
+        big = self.big
+        off_t, off_fmt = (16, "Q") if big else (4, "I")
+        nodata_s = (f"{self.nodata}".encode() + b"\0"
+                    if self.nodata is not None else None)
+        n_strips = len(self._offsets)
+
+        entries = []                      # (tag, typ, count, packed-values)
+
+        def add(tag, typ, fmt, values):
+            entries.append((tag, typ, len(values),
+                            struct.pack(e + fmt * len(values), *values)))
+
+        add(TAG_WIDTH, 4, "I", [self.width])
+        add(TAG_HEIGHT, 4, "I", [self.height])
+        add(TAG_BITS, 3, "H", [32])
+        add(TAG_COMPRESSION, 3, "H",
+            [8 if self.compress == "deflate" else 1])
+        add(TAG_PHOTOMETRIC, 3, "H", [1])
+        add(TAG_STRIP_OFFSETS, off_t, off_fmt, self._offsets)
+        add(TAG_SAMPLES_PER_PIXEL, 3, "H", [1])
+        add(TAG_ROWS_PER_STRIP, 4, "I", [self.rows_per_strip])
+        add(TAG_STRIP_BYTECOUNTS, off_t, off_fmt, self._counts)
+        add(TAG_SAMPLE_FORMAT, 3, "H", [3])
+        yul = self.yll + self.height * self.cell_size
+        add(TAG_MODEL_PIXEL_SCALE, 12, "d",
+            [self.cell_size, self.cell_size, 0.0])
+        add(TAG_MODEL_TIEPOINT, 12, "d",
+            [0.0, 0.0, 0.0, self.xll, yul, 0.0])
+        if nodata_s:
+            entries.append((TAG_GDAL_NODATA, 2, len(nodata_s), nodata_s))
+        entries.sort(key=lambda t: t[0])
+
+        ifd_off = self._pos
+        inline = 8 if big else 4
+        ent_size = 20 if big else 12
+        head = (struct.pack(e + "Q", len(entries)) if big
+                else struct.pack(e + "H", len(entries)))
+        ifd_size = len(head) + len(entries) * ent_size + (8 if big else 4)
+        extra = b""
+        out = bytearray(head)
+        for tag, typ, count, payload in entries:
+            if big:
+                out += struct.pack(e + "HHQ", tag, typ, count)
+            else:
+                out += struct.pack(e + "HHI", tag, typ, count)
+            if len(payload) <= inline:
+                out += payload.ljust(inline, b"\0")
+            else:
+                ptr = ifd_off + ifd_size + len(extra)
+                # Even-length payloads keep every value offset
+                # word-aligned (TIFF 6.0).
+                extra += payload + (b"\0" if len(payload) % 2 else b"")
+                out += struct.pack(e + off_fmt, ptr)
+        out += struct.pack(e + off_fmt, 0)          # next IFD
+        self._f.write(out + extra)
+        # Patch the header's first-IFD pointer.
+        self._f.seek(8 if big else 4)
+        self._f.write(struct.pack(e + off_fmt, ifd_off))
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.close()
+        else:
+            self._f.close()
+
+
+def _write_tiff(path: Path, raster: Raster):
+    data = np.asarray(raster.data)
+    w = TiffStripWriter(path, data.shape[1], data.shape[0],
+                        xll=raster.xll, yll=raster.yll,
+                        cell_size=raster.cell_size, nodata=raster.nodata)
+    w.write_rows(data)
+    w.close()
+
+
+# ------------------------------------------------------------ dispatch ----
+
+def read_raster(path) -> Raster:
+    """Read a raster, dispatching on magic bytes first, then extension."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        magic = f.read(16)
+    suffix = path.suffix.lower()
+    if magic.startswith(b"EHFA_HEADER_TAG") or suffix == ".img":
+        raise ValueError(f"{path}: HFA (.img) rasters are not ported to "
+                         "hipims_tpu_torch yet (ROADMAP.md, queue 1)")
+    if magic[:2] in (b"II", b"MM") and magic[2:3] in (b"*", b"\x00"):
+        return _read_tiff(path)
+    if suffix in (".tif", ".tiff"):
+        return _read_tiff(path)
+    return _read_asc(path)
+
+
+def write_raster(path, raster: Raster, fmt: Optional[str] = None):
+    path = Path(path)
+    fmt = (fmt or path.suffix.lstrip(".")).lower()
+    if fmt in ("asc", "aaigrid"):
+        _write_asc(path, raster)
+    elif fmt in ("tif", "tiff", "gtiff"):
+        _write_tiff(path, raster)
+    elif fmt in ("hfa", "img"):
+        raise ValueError("HFA (.img) output is not ported to "
+                         "hipims_tpu_torch yet (ROADMAP.md, queue 1)")
+    else:
+        raise ValueError(f"unsupported raster output format '{fmt}'")
