@@ -5,25 +5,37 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build kernel K1 (csrc/stencil.cu) from the checkout's sources with nvcc;
+2. build both kernel libraries from the checkout's sources with nvcc, in
+   parallel: K1 (csrc/stencil.cu) and the MUSCL kernels K2, K3, K5a-P and
+   K5a-C (csrc/muscl_split.cu);
 3. K1 against its plain PyTorch version on the card, f64 / f32 / f32c, at
    a 32x128 random case, 1408x1408 and 2944x3072 (9.04 M cells), with
    per-step times of both;
+3b. the same for the four MUSCL kernels (all 12 predictor planes, then the
+   corrector's fields), and the split12 chain (K2 -> K3) against the
+   recompute chain (K5a-P -> K5a-C);
 4. the main path: a Glasgow-class pluvial model (Godunov, 38.4 mm/h rain
    for the first hour plus a 6 mm/h loss, closed edges, XML precision
    "double" = compensated f32) at Thamesmead-class extent, 2944x3072 cells
    at 2 m, 600 s simulated with depth and maxdepth rasters every 300 s,
    run through ``hipims_tpu_torch.cli.main``; checks the rasters, the mass
    balance against rain minus loss, and that every step launched K1;
+4b. the same model with <scheme name="musclhancock">, 300 s simulated with
+   rasters every 150 s: every step launches K2 and K3 (the default
+   variant, split12);
+4c. the MUSCL model with ``muscl_variant="recompute"`` through the
+   embedding API (load_config -> Simulation.run), 150 s: every step
+   launches K5a-P and K5a-C; final depth finite, mass balance;
 5. the whole slice: the same model at 128x128 and 120 s, in float64
    ("double-strict"), on the card and on the CPU (plain versions); the
-   final fields must agree within the f32c bounds.  (In single precision
-   the 1 mm rain films make any two f32 implementations drift apart by
-   ~1e-4 m within 120 s, because their exp/log differ by an ulp and
-   implicit friction at h^-7/3 amplifies it: tests/test_torch_cli.py.)
+   final fields must agree within the f32c bounds; 5b: the same for MUSCL.
+   (In single precision the 1 mm rain films make any two f32
+   implementations drift apart by ~1e-4 m within 120 s, because their
+   exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
+   tests/test_torch_cli.py.)
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -41,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -73,7 +86,7 @@ XML = """<?xml version="1.0"?>
           <dataTarget type="raster" value="maxdepth" format="GTiff"
                       target="maxdepth_%t.tif" />
         </data>
-        <scheme name="godunov">
+        <scheme name="{scheme}">
           <parameter name="courantNumber" value="0.5" />
           <parameter name="frictionEffects" value="yes" />
         </scheme>
@@ -96,10 +109,11 @@ RAIN_MM_H, LOSS_MM_H = 38.4, 6.0
 
 
 def write_glasgow_model(root, rows, cols, duration, outfreq,
-                        precision="double", dx=2.0):
+                        precision="double", dx=2.0, scheme="godunov"):
     """Write the Glasgow-class model (the terrain and rain/drain of
-    tools/bench_e2e.py build_glasgow_class) at any extent; returns the XML
-    path.  Uses the port's own raster writer."""
+    tools/bench_e2e.py build_glasgow_class) at any extent, with the XML's
+    ``scheme`` name; returns the XML path.  Uses the port's own raster
+    writer."""
     from hipims_tpu_torch.io.raster import Raster, write_raster
 
     root = Path(root)
@@ -118,7 +132,7 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
         f"Time,Rate\n0,{LOSS_MM_H}\n7200,{LOSS_MM_H}\n")
     xml = root / "model.xml"
     xml.write_text(XML.format(duration=duration, outfreq=outfreq,
-                              precision=precision))
+                              precision=precision, scheme=scheme))
     return xml
 
 
@@ -167,12 +181,56 @@ def _time_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def _card_inputs(torch, device, arrs, mode):
+    """The random domain on the card in ``mode``'s dtype: (state, static,
+    comp, dt); comp is a non-zero residue plane in f32c, so the Neumaier
+    path is exercised, and None otherwise."""
+    from hipims_tpu_torch.state import DomainStatic, FlowState
+
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    t = [torch.as_tensor(a, device=device).to(dtype) for a in arrs]
+    comp = None
+    if mode == "f32c":
+        rng = np.random.default_rng(1)
+        comp = torch.as_tensor(rng.uniform(-1e-7, 1e-7, arrs[0].shape),
+                               device=device).to(dtype)
+    dt = torch.tensor(0.05, dtype=dtype, device=device)
+    return FlowState(*t[:4]), DomainStatic(*t[4:]), comp, dt
+
+
+def _step_pairs(got, want):
+    """(name, got, want) for two step results (new_state, speed[, comp]):
+    the four fields, the speed, and with comp the true surface z + comp,
+    which is the invariant of the compensated plane."""
+    pairs = list(zip(("z", "zmax", "qx", "qy"), got[0], want[0]))
+    pairs.append(("speed", got[1], want[1]))
+    if len(got) == 3:
+        pairs.append(("z+comp", got[2].double() + got[0].z.double(),
+                      want[2].double() + want[0].z.double()))
+    return pairs
+
+
+def _agree(who, mode, pairs, bars=None):
+    """Raise unless every (name, got, want) pair agrees within ``bars``
+    ((rtol, atol); by default ``mode``'s, and TRUE_SURFACE_TOL for
+    z + comp); returns the largest |got - want|."""
+    worst = 0.0
+    for name, g, w in pairs:
+        rtol, atol = bars or ((0.0, TRUE_SURFACE_TOL) if name == "z+comp"
+                              else TOL[mode])
+        excess, diff = _excess(g, w, rtol, atol)
+        worst = max(worst, diff)
+        if excess > 0.0:
+            raise RuntimeError(f"{who} {mode} {name}: max|diff|={diff:.3e} "
+                               f"(rtol={rtol}, atol={atol})")
+    return worst
+
+
 def phase_kernel_vs_plain(torch, device):
     """Phase 3: K1 against its plain version on the card."""
     from hipims_tpu_torch.ops.godunov import SchemeParams
     from hipims_tpu_torch.ops.kernels.stencil import (stencil_step,
                                                       stencil_step_plain)
-    from hipims_tpu_torch.state import DomainStatic, FlowState
 
     params = SchemeParams(dx=2.0, dy=2.0)
     worst = 0.0
@@ -181,39 +239,14 @@ def phase_kernel_vs_plain(torch, device):
                              (2944, 3072, 10)):
         arrs = random_domain(0, rows, cols)
         for mode in ("f64", "f32", "f32c"):
-            dtype = torch.float64 if mode == "f64" else torch.float32
-            t = [torch.as_tensor(a, device=device).to(dtype) for a in arrs]
-            state, static = FlowState(*t[:4]), DomainStatic(*t[4:])
-            comp = None
-            if mode == "f32c":
-                # A non-zero residue plane exercises the Neumaier path.
-                rng = np.random.default_rng(1)
-                comp = torch.as_tensor(rng.uniform(-1e-7, 1e-7, (rows, cols)),
-                                       device=device).to(dtype)
-            dt = torch.tensor(0.05, dtype=dtype, device=device)
+            state, static, comp, dt = _card_inputs(torch, device, arrs, mode)
             got = stencil_step("godunov", state, static, dt, params,
                                comp=comp)
             want = stencil_step_plain(state, static, dt, params, comp=comp)
             torch.cuda.synchronize()
-            rtol, atol = TOL[mode]
-            names = ["z", "zmax", "qx", "qy", "speed"] + (
-                ["comp"] if comp is not None else [])
-            pairs = list(zip(got[0], want[0])) + [(got[1], want[1])] + (
-                [(got[2], want[2])] if comp is not None else [])
-            for name, (g, w) in zip(names, pairs):
-                if name == "comp":
-                    # The invariant is the true surface z + comp.
-                    g = g.double() + got[0].z.double()
-                    w = w.double() + want[0].z.double()
-                    excess, diff = _excess(g, w, 0.0, TRUE_SURFACE_TOL)
-                else:
-                    excess, diff = _excess(g, w, rtol, atol)
-                worst = max(worst, diff)
-                if excess > 0.0:
-                    raise RuntimeError(
-                        f"K1 disagrees with the plain version: {rows}x{cols}"
-                        f" {mode} {name} max|diff|={diff:.3e} (rtol={rtol}, "
-                        f"atol={atol})")
+            worst = max(worst, _agree(
+                f"K1 disagrees with the plain version: {rows}x{cols}", mode,
+                _step_pairs(got, want)))
             k_ms = _time_ms(torch, lambda: stencil_step(
                 "godunov", state, static, dt, params, comp=comp), reps)
             p_ms = _time_ms(torch, lambda: stencil_step_plain(
@@ -225,11 +258,106 @@ def phase_kernel_vs_plain(torch, device):
     return worst, times
 
 
+def phase_muscl_vs_plain(torch, device):
+    """Phase 3b: K2, K3, K5a-P and K5a-C against their plain versions on
+    the card and on the same inputs: every predictor plane; then each
+    corrector's fields, speed and true surface, both fed the plain
+    predictor's planes.  Then the two kernel chains (split12: K2 -> K3,
+    recompute: K5a-P -> K5a-C) against each other at the JAX package's
+    bar for the two variants (rel 1e-13); bit-equal is expected."""
+    from hipims_tpu_torch.ops.godunov import SchemeParams
+    from hipims_tpu_torch.ops.kernels import muscl_split as ms
+
+    params = SchemeParams(dx=2.0, dy=2.0)
+    chains = {"split12": (ms.muscl_predict, ms.muscl_correct),
+              "recompute": (ms.muscl_predict_base,
+                            ms.muscl_correct_recompute)}
+    worst = {k.__name__: 0.0 for k in ms.KERNELS}
+    times = {}
+    for rows, cols, reps, plain_reps in ((32, 128, 20, 5),
+                                         (1408, 1408, 20, 3),
+                                         (2944, 3072, 10, 2)):
+        arrs = random_domain(0, rows, cols)
+        for mode in ("f64", "f32", "f32c"):
+            state, static, comp, dt = _card_inputs(torch, device, arrs, mode)
+            ends = {}
+            for variant, (pred_k, corr_k) in chains.items():
+                store = variant == "split12"
+                pname, cname = pred_k.__name__, corr_k.__name__
+                pred = pred_k(state, static, dt, params)
+                want_pred = ms.muscl_predict_plain(state, static, dt, params,
+                                                   store_slopes=store)
+                torch.cuda.synchronize()
+                worst[pname] = max(worst[pname], _agree(
+                    f"{pname} {rows}x{cols}", mode,
+                    [("planes", pred, want_pred)]))
+                got = corr_k(state, static, want_pred, dt, params, comp=comp)
+                want = ms.muscl_correct_plain(state, static, want_pred, dt,
+                                              params, comp=comp)
+                torch.cuda.synchronize()
+                worst[cname] = max(worst[cname], _agree(
+                    f"{cname} {rows}x{cols}", mode, _step_pairs(got, want)))
+                ends[variant] = corr_k(state, static, pred, dt, params,
+                                       comp=comp)
+                times[(pname, rows, cols, mode)] = (
+                    _time_ms(torch, lambda: pred_k(state, static, dt, params),
+                             reps),
+                    _time_ms(torch, lambda: ms.muscl_predict_plain(
+                        state, static, dt, params, store_slopes=store),
+                        plain_reps))
+                times[(cname, rows, cols, mode)] = (
+                    _time_ms(torch, lambda: corr_k(
+                        state, static, pred, dt, params, comp=comp), reps),
+                    _time_ms(torch, lambda: ms.muscl_correct_plain(
+                        state, static, want_pred, dt, params, comp=comp),
+                        plain_reps))
+            torch.cuda.synchronize()
+            split_diff = _agree(
+                f"split12 and recompute differ at {rows}x{cols}", mode,
+                _step_pairs(ends["split12"], ends["recompute"]),
+                bars=(1e-13, 1e-15))
+            per_step = ", ".join(
+                f"{k.__name__} {times[(k.__name__, rows, cols, mode)][0]:.4f}"
+                f" / {times[(k.__name__, rows, cols, mode)][1]:.4f}"
+                for k in ms.KERNELS)
+            print(f"phase 3b: MUSCL kernels vs plain {rows}x{cols} {mode}: "
+                  f"agree (max|diff| so far "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+                  + f"); split12 vs recompute max|diff| {split_diff:.3e}; "
+                  f"per step kernel / plain ms: {per_step}", flush=True)
+    return worst, times
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches
+    in ``.launches``."""
+    from hipims_tpu_torch.ops.kernels import muscl_split, stencil
+    return {k.__name__: k for k in (stencil.stencil_step,
+                                    *muscl_split.KERNELS)}
+
+
+def _reset_launches():
+    for k in kernel_wrappers().values():
+        k.launches = 0
+
+
+def _read_launches():
+    return {name: k.launches for name, k in kernel_wrappers().items()}
+
+
+def _forced_volume(rows, cols, ring, duration):
+    """Rain minus loss on the forced cells: the grid minus the scheme's
+    static ring, which the closed-edge walls occupy."""
+    forced = (rows - 2 * ring) * (cols - 2 * ring) * 2.0 * 2.0
+    return (RAIN_MM_H - LOSS_MM_H) / 3.6e6 * duration * forced
+
+
 def run_main_path(root, device, rows, cols, duration, outfreq,
-                  mass_tol=MASS_BALANCE_REL):
-    """Phase 4: write the model, run it through the CLI on ``device``
-    ("gpu" or "cpu"), check outputs and mass balance.  Returns a dict of
-    what it measured.
+                  mass_tol=MASS_BALANCE_REL, scheme="godunov"):
+    """Phase 4: write the model with the XML's ``scheme`` name, run it
+    through the CLI on ``device`` ("gpu" or "cpu"), check outputs and mass
+    balance.  Returns a dict of what it measured, with the launches of
+    every kernel wrapper during the run.
 
     Rain and loss apply in hydrological chunks of >= 1 s, so the last
     partial chunk (< 1 s of forcing) is missing at the end of a run:
@@ -237,17 +365,18 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
     needs a looser ``mass_tol``."""
     from hipims_tpu_torch.cli import main as cli_main
     from hipims_tpu_torch.io.raster import read_raster
-    from hipims_tpu_torch.ops.kernels.stencil import stencil_step
+    from hipims_tpu_torch.models import get_scheme
 
-    xml = write_glasgow_model(root, rows, cols, duration, outfreq)
+    xml = write_glasgow_model(root, rows, cols, duration, outfreq,
+                              scheme=scheme)
     buf = io.StringIO()
-    stencil_step.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(["-c", str(xml), "-n", "--mass-balance",
                        "--platform", device])
     wall = time.perf_counter() - t0
-    launches = stencil_step.launches
+    launches = _read_launches()
     out = buf.getvalue()
     if rc != 0:
         raise RuntimeError(f"CLI run failed with status {rc}:\n{out}")
@@ -274,10 +403,8 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
     vols = [float(v) for v in re.findall(r"volume=([0-9.eE+-]+) m3", out)]
     if len(vols) != n_out:
         raise RuntimeError(f"expected {n_out} mass-balance lines:\n{out}")
-    # Rain minus loss on the forced cells (the grid minus its 1-cell
-    # static ring, which the closed-edge walls occupy).
-    forced = (rows - 2) * (cols - 2) * 2.0 * 2.0
-    expected = (RAIN_MM_H - LOSS_MM_H) / 3.6e6 * duration * forced
+    ring = get_scheme(re.search(r"Scheme:\s+(\S+)", out).group(1)).radius
+    expected = _forced_volume(rows, cols, ring, duration)
     rel = (vols[-1] - expected) / expected
     if abs(rel) > mass_tol:
         raise RuntimeError(f"mass balance off by {rel:+.4%}: volume "
@@ -288,13 +415,45 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
                 cells=rows * cols, log=out)
 
 
-def phase_slice_gpu_vs_cpu(torch, root):
+def run_api_path(root, device, rows, cols, duration, variant,
+                 mass_tol=MASS_BALANCE_REL):
+    """Phase 4c: the MUSCL model through the embedding API
+    (``load_config`` -> ``Simulation.run``) on ``device`` with
+    ``SimulationConfig.muscl_variant = variant``; checks the final depth
+    and the mass balance.  Returns what it measured."""
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.models import get_scheme
+
+    xml = write_glasgow_model(root, rows, cols, duration, duration,
+                              scheme="musclhancock")
+    model = load_config(xml)
+    model.output_targets = []              # the volume is read in memory
+    model.config.muscl_variant = variant
+    sim = model.simulation(device=device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    sim.run()                  # ends on a host read of the clock
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    depth = sim.depth()
+    if not np.isfinite(depth).all():
+        raise RuntimeError("API run: non-finite depth")
+    ring = get_scheme(model.config.scheme).radius
+    expected = _forced_volume(rows, cols, ring, duration)
+    rel = (sim.volume() - expected) / expected
+    if abs(rel) > mass_tol:
+        raise RuntimeError(f"API run: mass balance off by {rel:+.4%}")
+    return dict(wall_s=wall, steps=sim.total_steps, idle=sim.total_skipped,
+                launches=launches, rel=rel)
+
+
+def phase_slice_gpu_vs_cpu(torch, root, scheme="godunov"):
     """Phase 5: the same model at 128x128 and 120 s, float64, on the card
     and on the CPU; final fields within the f32c bounds."""
     from hipims_tpu_torch.io.xml_config import load_config
 
     xml = write_glasgow_model(root, 128, 128, 120.0, 120.0,
-                              precision="double-strict")
+                              precision="double-strict", scheme=scheme)
     sims = {}
     for dev in ("cuda", "cpu"):
         model = load_config(xml)
@@ -315,6 +474,28 @@ def phase_slice_gpu_vs_cpu(torch, root):
             raise RuntimeError(f"card and CPU runs differ in {name}: "
                                f"max|diff|={diff:.3e}")
     return g.total_steps, worst
+
+
+def _expect_launches(label, launches, want):
+    """Raise unless the wrappers named in ``want`` launched that many
+    times (at least once) and every other wrapper not at all."""
+    for name, n in launches.items():
+        if n != want.get(name, 0) or (name in want and n == 0):
+            raise RuntimeError(f"{label}: {name} launched {n} times, "
+                               f"expected {want.get(name, 0)}; all: "
+                               f"{launches}")
+
+
+def _main_path_line(label, rows, cols, duration, res, smi):
+    rate = res["cells"] * res["steps"] / res["wall_s"]
+    setup_s = res["wall_s"] - res["run_s"]
+    counts = ", ".join(f"{n} {c}" for n, c in res["launches"].items() if c)
+    return (f"{label} {rows}x{cols} f32c, {duration:g} s simulated: "
+            f"{res['steps']} steps (+{res['idle']} idle), wall "
+            f"{res['wall_s']:.2f} s (set-up {setup_s:.1f} s, run with "
+            f"outputs {res['run_s']:.1f} s), {rate:.4e} cell-steps/s on "
+            f"{smi}; mass balance {res['rel']:+.4%} of rain - loss; "
+            f"launches: {counts}")
 
 
 def main() -> int:
@@ -342,51 +523,76 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
 
-    # Phase 2: build K1 from the checkout's sources.
-    from hipims_tpu_torch.ops.kernels import stencil as k1
+    # Phase 2: build both kernel libraries from the checkout's sources,
+    # one nvcc each, started together.
+    from hipims_tpu_torch.ops.kernels import muscl_split, stencil
     t0 = time.perf_counter()
-    k1._lib()
-    print(f"phase 2: built K1 (csrc/stencil.cu) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m._lib(), (stencil, muscl_split)))
+    print(f"phase 2: built K1 (csrc/stencil.cu) and the MUSCL kernels "
+          f"(csrc/muscl_split.cu) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
-    # Phase 3: K1 against the plain version.
+    # Phase 3: K1 against the plain version; 3b: the MUSCL kernels.
     max_err, times = phase_kernel_vs_plain(torch, device)
+    muscl_err, muscl_times = phase_muscl_vs_plain(torch, device)
 
+    rows, cols = 2944, 3072
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        # Phase 4: the main path at 9.04 M cells.
-        rows, cols = 2944, 3072
+        # Phase 4: the Godunov main path at 9.04 M cells.
         res = run_main_path(Path(tmp) / "main", "gpu", rows, cols,
                             600.0, 300.0)
-        total = res["steps"] + res["idle"]
-        if res["launches"] != total or res["launches"] == 0:
-            raise RuntimeError(f"K1 launched {res['launches']} times for "
-                               f"{total} steps")
-        rate = res["cells"] * res["steps"] / res["wall_s"]
-        setup_s = res["wall_s"] - res["run_s"]
-        print(f"phase 4: main path {rows}x{cols} f32c, 600 s simulated: "
-              f"{res['steps']} steps (+{res['idle']} idle), wall "
-              f"{res['wall_s']:.2f} s (set-up {setup_s:.1f} s, run with "
-              f"outputs {res['run_s']:.1f} s), "
-              f"{rate:.4e} cell-steps/s on {smi}; "
-              f"mass balance {res['rel']:+.4%} of rain - loss; "
-              f"K1 launches {res['launches']}", flush=True)
+        _expect_launches("phase 4", res["launches"], {
+            "stencil_step": res["steps"] + res["idle"]})
+        print(_main_path_line("phase 4: main path", rows, cols, 600.0, res,
+                              smi), flush=True)
 
-        # Phase 5: the whole slice, card against CPU.
-        steps5, err5 = phase_slice_gpu_vs_cpu(torch, Path(tmp) / "slice")
-        print(f"phase 5: 128x128 120 s f64 slice, card vs CPU: {steps5} "
-              f"steps, fields agree (max|diff| {err5:.3e})", flush=True)
+        # Phase 4b: the MUSCL main path (default variant split12).
+        res_b = run_main_path(Path(tmp) / "muscl", "gpu", rows, cols,
+                              300.0, 150.0, scheme="musclhancock")
+        total = res_b["steps"] + res_b["idle"]
+        _expect_launches("phase 4b", res_b["launches"], {
+            "muscl_predict": total, "muscl_correct": total})
+        print(_main_path_line("phase 4b: MUSCL main path", rows, cols, 300.0,
+                              res_b, smi), flush=True)
 
-    k_ms, p_ms = times[(2944, 3072, "f32c")]
-    print(json.dumps({"kernels": [{
-        "name": "godunov_step",
-        "route": "cuda",
-        "source": "hipims_tpu_torch/csrc/stencil.cu",
-        "replaces": "hipims_tpu/ops/pallas/stencil.py:226",
-        "launches": res["launches"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        # Phase 4c: the recompute variant through the embedding API.
+        res_c = run_api_path(Path(tmp) / "recompute", "cuda", rows, cols,
+                             150.0, "recompute")
+        total = res_c["steps"] + res_c["idle"]
+        _expect_launches("phase 4c", res_c["launches"], {
+            "muscl_predict_base": total, "muscl_correct_recompute": total})
+        print(f"phase 4c: MUSCL recompute variant through load_config -> "
+              f"Simulation.run, {rows}x{cols} f32c, 150 s simulated: "
+              f"{res_c['steps']} steps (+{res_c['idle']} idle) in "
+              f"{res_c['wall_s']:.2f} s; mass balance {res_c['rel']:+.4%}; "
+              f"launches {total} each", flush=True)
+
+        # Phase 5: the whole slice, card against CPU; 5b: MUSCL.
+        for label, scheme in (("5", "godunov"), ("5b", "musclhancock")):
+            steps5, err5 = phase_slice_gpu_vs_cpu(
+                torch, Path(tmp) / f"slice_{scheme}", scheme)
+            print(f"phase {label}: 128x128 120 s f64 {scheme} slice, card vs "
+                  f"CPU: {steps5} steps, fields agree (max|diff| "
+                  f"{err5:.3e})", flush=True)
+
+    src = "hipims_tpu_torch/csrc/muscl_split.cu"
+    tpu = "hipims_tpu/ops/pallas/muscl_split.py"
+    kernels = [("godunov_step", "hipims_tpu_torch/csrc/stencil.cu",
+                "hipims_tpu/ops/pallas/stencil.py:226",
+                res["launches"]["stencil_step"], max_err,
+                times[(rows, cols, "f32c")]),
+               *((name, src, f"{tpu}:{line}", run["launches"][name],
+                  muscl_err[name], muscl_times[(name, rows, cols, "f32c")])
+                 for name, line, run in (
+                     ("muscl_predict", 68, res_b),
+                     ("muscl_correct", 112, res_b),
+                     ("muscl_predict_base", 202, res_c),
+                     ("muscl_correct_recompute", 237, res_c)))]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+        for name, source, rep, n, err, t in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,24 +43,6 @@ namespace {
 constexpr int BX = 32;
 constexpr int BY = 8;
 
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  return (b > a || b != b) ? b : a;
-}
-
-template <typename T>
-__device__ __forceinline__ T cell_speed(T z, T zmax, T qx, T qy, T zb, T qs,
-                                        bool simplified) {
-  const T h = z - zb;
-  const bool wet = (h > qs) && (zmax > T(swe::NODATA));
-  const T h_safe = wet ? h : T(1);
-  const T cel = swe::vsqrt(T(swe::GRAVITY) * swe::clamp_min(h, T(0)));
-  const T spd = simplified
-                    ? cel
-                    : swe::vmax(swe::vabs(qx), swe::vabs(qy)) / h_safe + cel;
-  return wet ? spd : T(0);
-}
-
 template <typename T, bool COMP>
 __global__ void __launch_bounds__(BX * BY)
     godunov_step_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
@@ -130,9 +112,9 @@ __global__ void __launch_bounds__(BX * BY)
                (fn.cross - fs.cross) * inv_dy - src_x;
       T d_qy = (fe.cross - fw.cross) * inv_dx +
                ((fn.along + c_n) - (fs.along + c_s)) * inv_dy - src_y;
-      d_z = (vabs(d_z) < vs) ? T(0) : d_z;
-      d_qx = (vabs(d_qx) < vs) ? T(0) : d_qx;
-      d_qy = (vabs(d_qy) < vs) ? T(0) : d_qy;
+      d_z = round_small(d_z, vs);
+      d_qx = round_small(d_qx, vs);
+      d_qy = round_small(d_qy, vs);
 
       const bool stop = fe.stop_l || fw.stop_r || fn.stop_l || fs.stop_r;
       const T qx_c = stop ? T(0) : qx_c0;
@@ -178,24 +160,7 @@ __global__ void __launch_bounds__(BX * BY)
     spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified);
   }
 
-  // Block max: warp shuffle, then one value per warp through shared memory.
-  const int lane = (threadIdx.y * BX + threadIdx.x) & 31;
-  const int warp = (threadIdx.y * BX + threadIdx.x) >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    spd = nan_max(spd, __shfl_down_sync(0xffffffffu, spd, off));
-  }
-  __shared__ T warp_max[BX * BY / 32];
-  if (lane == 0) warp_max[warp] = spd;
-  __syncthreads();
-  if (warp == 0) {
-    spd = (lane < BX * BY / 32) ? warp_max[lane] : T(0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      spd = nan_max(spd, __shfl_down_sync(0xffffffffu, spd, off));
-    }
-    if (lane == 0) speeds[blockIdx.y * gridDim.x + blockIdx.x] = spd;
-  }
+  block_max_store<T, BX * BY>(spd, speeds);
 }
 
 template <typename T, bool COMP>

@@ -1,9 +1,11 @@
 // Device functions shared by the shallow-water kernels: interface
-// reconstruction + HLLC, the per-cell local datum, implicit Manning friction
-// and the Neumaier-compensated add.
+// reconstruction + HLLC (first-order and MUSCL), the per-cell local datum,
+// implicit Manning friction, the Neumaier-compensated add, the per-cell CFL
+// speed and the per-block CFL partial max.
 //
 // Each function is a line-for-line transcription of its plain PyTorch
-// version (hipims_tpu_torch/ops/riemann.py, friction.py, compensated.py),
+// version (hipims_tpu_torch/ops/riemann.py, friction.py, compensated.py,
+// timestep.py),
 // operation for operation and in the same order, so that float64 results
 // agree with the CPU to round-off.  Constants that Python folds in double
 // before they meet a tensor (0.5 * g, -7/3, ...) are folded in double here
@@ -71,40 +73,26 @@ struct StopGuard<float> {
   }
 };
 
-// ops/riemann.py::solve_interfaces + _hllc for one interface.
+// ops/riemann.py::_hllc: HLLC on reconstructed states (depth form).  The
+// raw discharges qal_raw / qar_raw feed the stopping conditions, and the raw
+// cross discharges qcl_raw / qcr_raw the f32 StopGuard.
 template <typename T>
-__device__ __forceinline__ Face<T> solve_interface(T zl, T zbl, T qal, T qcl,
-                                                   T zr, T zbr, T qar, T qcr,
-                                                   T vs) {
+__device__ __forceinline__ Face<T> hllc(T hl, T hr, T zbm, T qal_r, T qcl_r,
+                                        T qar_r, T qcr_r, T ual, T ucl, T uar,
+                                        T ucr, T qal_raw, T qar_raw,
+                                        T qcl_raw, T qcr_raw, T vs) {
   const T g = T(GRAVITY);
-  const T hl_raw = zl - zbl;
-  const T hr_raw = zr - zbr;
-  const T inv_hl = (hl_raw < vs) ? T(0) : T(1) / hl_raw;
-  const T inv_hr = (hr_raw < vs) ? T(0) : T(1) / hr_raw;
-  const T ual = qal * inv_hl;
-  const T ucl = qcl * inv_hl;
-  const T uar = qar * inv_hr;
-  const T ucr = qcr * inv_hr;
-
   Face<T> f;
-  const T zbm = vmax(zbl, zbr);
-  const T hl = clamp_min(zl - zbm, T(0));
-  const T hr = clamp_min(zr - zbm, T(0));
-  const T qal_r = hl * ual;
-  const T qcl_r = hl * ucl;
-  const T qar_r = hr * uar;
-  const T qcr_r = hr * ucr;
-
   const bool dry_l = hl <= vs;
   const bool dry_r = hr <= vs;
   const T thr_ul = StopGuard<T>::thr(ucl);
   const T thr_ur = StopGuard<T>::thr(ucr);
-  const T thr_ql = StopGuard<T>::thr(qcl);
-  const T thr_qr = StopGuard<T>::thr(qcr);
+  const T thr_ql = StopGuard<T>::thr(qcl_raw);
+  const T thr_qr = StopGuard<T>::thr(qcr_raw);
   const bool cond_shared = (dry_r && (ual < -thr_ul)) ||
                            (dry_l && (uar > thr_ur));
-  f.stop_l = (dry_l && (qal > thr_ql)) || cond_shared;
-  f.stop_r = (dry_r && (qar < -thr_qr)) || cond_shared;
+  f.stop_l = (dry_l && (qal_raw > thr_ql)) || cond_shared;
+  f.stop_r = (dry_r && (qar_raw < -thr_qr)) || cond_shared;
 
   const T vl = (hl < vs) ? T(0) : ual;
   const T wl = (hl < vs) ? T(0) : ucl;
@@ -167,6 +155,50 @@ __device__ __forceinline__ Face<T> solve_interface(T zl, T zbl, T qal, T qcl,
   return f;
 }
 
+// ops/riemann.py::solve_interfaces for one interface: the first-order
+// depth-positive reconstruction, then hllc.
+template <typename T>
+__device__ __forceinline__ Face<T> solve_interface(T zl, T zbl, T qal, T qcl,
+                                                   T zr, T zbr, T qar, T qcr,
+                                                   T vs) {
+  const T hl_raw = zl - zbl;
+  const T hr_raw = zr - zbr;
+  const T inv_hl = (hl_raw < vs) ? T(0) : T(1) / hl_raw;
+  const T inv_hr = (hr_raw < vs) ? T(0) : T(1) / hr_raw;
+  const T ual = qal * inv_hl;
+  const T ucl = qcl * inv_hl;
+  const T uar = qar * inv_hr;
+  const T ucr = qcr * inv_hr;
+
+  const T zbm = vmax(zbl, zbr);
+  const T hl = clamp_min(zl - zbm, T(0));
+  const T hr = clamp_min(zr - zbm, T(0));
+  return hllc(hl, hr, zbm, hl * ual, hl * ucl, hr * uar, hr * ucr, ual, ucl,
+              uar, ucr, qal, qar, qcl, qcr, vs);
+}
+
+// ops/riemann.py::solve_interfaces_muscl for one interface: face-
+// extrapolated estimates (z, h, along, cross) on each side, velocities
+// zeroed where h <= vs, the common bed the max of the implied beds z - h,
+// and the raw CELL discharges for the stopping conditions.
+template <typename T>
+__device__ __forceinline__ Face<T> solve_interface_muscl(
+    T zl_e, T hl_e, T qal_e, T qcl_e, T zr_e, T hr_e, T qar_e, T qcr_e,
+    T qal_cell, T qar_cell, T qcl_cell, T qcr_cell, T vs) {
+  const T inv_hl = (hl_e <= vs) ? T(0) : T(1) / hl_e;
+  const T inv_hr = (hr_e <= vs) ? T(0) : T(1) / hr_e;
+  const T ual = qal_e * inv_hl;
+  const T ucl = qcl_e * inv_hl;
+  const T uar = qar_e * inv_hr;
+  const T ucr = qcr_e * inv_hr;
+
+  const T zbm = vmax(zl_e - hl_e, zr_e - hr_e);
+  const T hl = clamp_min(zl_e - zbm, T(0));
+  const T hr = clamp_min(zr_e - zbm, T(0));
+  return hllc(hl, hr, zbm, hl * ual, hl * ucl, hr * uar, hr * ucr, ual, ucl,
+              uar, ucr, qal_cell, qar_cell, qcl_cell, qcr_cell, vs);
+}
+
 // ops/riemann.py::local_datum: zb_local = min(zbm, z_cell) and
 // C = -0.5 g zb_local^2.
 template <typename T>
@@ -218,6 +250,56 @@ __device__ __forceinline__ void comp_add(T z, T comp, T delta, T& z_new,
   const T y = delta + comp;
   z_new = z + y;
   comp_new = y - (z_new - z);
+}
+
+// Deltas below the dry threshold are zeroed (ops/godunov.py::_round_small).
+template <typename T>
+__device__ __forceinline__ T round_small(T d, T vs) {
+  return (vabs(d) < vs) ? T(0) : d;
+}
+
+// ops/timestep.py::cell_wave_speed for one cell.
+template <typename T>
+__device__ __forceinline__ T cell_speed(T z, T zmax, T qx, T qy, T zb, T qs,
+                                        bool simplified) {
+  const T h = z - zb;
+  const bool wet = (h > qs) && (zmax > T(NODATA));
+  const T h_safe = wet ? h : T(1);
+  const T cel = vsqrt(T(GRAVITY) * clamp_min(h, T(0)));
+  const T spd = simplified ? cel : vmax(vabs(qx), vabs(qy)) / h_safe + cel;
+  return wet ? spd : T(0);
+}
+
+// NaN-propagating max, as torch.amax, so a diverged state reaches the
+// host's divergence check.
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (b > a || b != b) ? b : a;
+}
+
+// Writes the max of ``v`` over the block (NTHREADS threads, a multiple of
+// 32) to out[block index]: a warp shuffle, then one value per warp through
+// shared memory.  Every thread of the block must call it.
+template <typename T, int NTHREADS>
+__device__ __forceinline__ void block_max_store(T v, T* out) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  __shared__ T warp_max[NTHREADS / 32];
+  if (lane == 0) warp_max[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = (lane < NTHREADS / 32) ? warp_max[lane] : T(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+    }
+    if (lane == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = v;
+  }
 }
 
 }  // namespace swe

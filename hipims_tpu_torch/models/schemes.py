@@ -1,8 +1,8 @@
 """Scheme definitions.  Names match the reference's configuration
 vocabulary (reference: src/Schemes/CScheme.cpp:141-175).
 
-Only first-order Godunov is ported; MUSCL-Hancock and the partial-inertial
-scheme are listed in ROADMAP.md (queue 1) and raise until they land.
+First-order Godunov and MUSCL-Hancock are ported; the partial-inertial
+scheme is listed in ROADMAP.md (queue 1) and raises until it lands.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ from typing import NamedTuple
 
 
 class Scheme(NamedTuple):
-    """A scheme's name (which ``stencil_step`` dispatches on) and the
-    metadata the runtime needs."""
+    """A scheme's name (which ``Simulation._run_batch`` dispatches on) and
+    the metadata the runtime needs."""
 
     name: str
     simplified_speed: bool    # CFL uses sqrt(gh) only (inertial)
@@ -21,8 +21,10 @@ class Scheme(NamedTuple):
 
 SCHEMES = {
     "godunov": Scheme("godunov", simplified_speed=False, radius=1),
+    "muscl-hancock": Scheme("muscl-hancock", simplified_speed=False,
+                            radius=2),
 }
-NOT_PORTED = ("muscl-hancock", "inertial")
+NOT_PORTED = ("inertial",)
 
 
 def get_scheme(name: str) -> Scheme:

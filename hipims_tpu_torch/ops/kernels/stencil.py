@@ -39,31 +39,32 @@ def _lib():
     return lib
 
 
-def _check(tensors, dt, comp):
+def check_planes(who, tensors, dt, comp):
+    """Raise unless ``tensors`` are contiguous (rows, cols) planes of one
+    shape, float dtype and device, ``dt`` a 0-d tensor beside them, and
+    ``comp`` (if given) a float32 option: what the kernels take."""
     ref = tensors[0]
     if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"stencil_step takes float32 or float64, got "
-                        f"{ref.dtype}")
+        raise TypeError(f"{who} takes float32 or float64, got {ref.dtype}")
     if ref.dim() != 2 or min(ref.shape) < 3:
-        raise ValueError(f"stencil_step needs a (rows, cols) grid of at "
-                         f"least 3x3, got {tuple(ref.shape)}")
+        raise ValueError(f"{who} needs a (rows, cols) grid of at least 3x3, "
+                         f"got {tuple(ref.shape)}")
     for t in tensors:
         if (t.device != ref.device or t.dtype != ref.dtype
                 or t.shape != ref.shape or not t.is_contiguous()):
-            raise ValueError("stencil_step: every plane must be a "
-                             "contiguous tensor of one shape, dtype and "
-                             "device")
+            raise ValueError(f"{who}: every plane must be a contiguous "
+                             "tensor of one shape, dtype and device")
     if dt.dim() != 0 or dt.device != ref.device or dt.dtype != ref.dtype:
-        raise ValueError("stencil_step: dt must be a 0-d tensor on the "
-                         "planes' device, in their dtype")
+        raise ValueError(f"{who}: dt must be a 0-d tensor on the planes' "
+                         "device, in their dtype")
     if comp is not None and ref.dtype != torch.float32:
-        raise ValueError("stencil_step: the comp plane is a float32 "
-                         "(compensated) option")
+        raise ValueError(f"{who}: the comp plane is a float32 (compensated) "
+                         "option")
 
 
 def _launch_cuda(state, static, dt, params, comp, simplified_speed):
     planes = [*state, *static] + ([comp] if comp is not None else [])
-    _check(planes, dt, comp)
+    check_planes("stencil_step", planes, dt, comp)
     rows, cols = state.z.shape
     lib = _lib()
     out = [torch.empty_like(state.z) for _ in range(4)]

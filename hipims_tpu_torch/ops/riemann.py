@@ -63,6 +63,36 @@ def solve_interfaces(zl, zbl, qal, qcl, zr, zbr, qar, qcr,
                  qcr_raw=qcr)
 
 
+def solve_interfaces_muscl(zl_e, hl_e, qal_e, qcl_e,
+                           zr_e, hr_e, qar_e, qcr_e,
+                           qal_cell, qar_cell,
+                           very_small: float,
+                           qcl_cell=None, qcr_cell=None) -> InterfaceFlux:
+    """Reconstruct + HLLC for MUSCL face-extrapolated estimates.
+
+    Mirrors the corrector-stage reconstructInterface overload
+    (src/Schemes/CLSchemeMUSCLHancock.clc:1119-1230).  Against
+    ``solve_interfaces``: velocities vanish where the face depth is
+    ``<= vs`` (not ``< vs``), the common bed is the max of the implied beds
+    z - h, and the stopping conditions consult the raw CELL discharges."""
+    vs = very_small
+    inv_hl = torch.where(hl_e <= vs, 0.0,
+                         1.0 / torch.where(hl_e <= vs, 1.0, hl_e))
+    inv_hr = torch.where(hr_e <= vs, 0.0,
+                         1.0 / torch.where(hr_e <= vs, 1.0, hr_e))
+    ual = qal_e * inv_hl
+    ucl = qcl_e * inv_hl
+    uar = qar_e * inv_hr
+    ucr = qcr_e * inv_hr
+
+    zbm = torch.maximum(zl_e - hl_e, zr_e - hr_e)
+    hl = torch.clamp(zl_e - zbm, min=0.0)
+    hr = torch.clamp(zr_e - zbm, min=0.0)
+    return _hllc(hl, hr, zbm, hl * ual, hl * ucl, hr * uar, hr * ucr,
+                 ual, ucl, uar, ucr, qal_cell, qar_cell, vs,
+                 qcl_raw=qcl_cell, qcr_raw=qcr_cell)
+
+
 def _hllc(hl, hr, zbm, qal_r, qcl_r, qar_r, qcr_r,
           ual, ucl, uar, ucr, qal_raw, qar_raw, vs,
           qcl_raw=None, qcr_raw=None) -> InterfaceFlux:

@@ -1,8 +1,9 @@
 """Simulation master loop, single device.
 
 A batch is a Python loop of K steps of on-device work: boundaries ->
-fused scheme step with its CFL partial max (kernel K1 on the card) -> the
-time controller ``advance``.  dt and t stay on the device as 0-d tensors,
+scheme step with its CFL partial max (on the card: kernel K1 for Godunov,
+the MUSCL predictor + corrector kernels for MUSCL-Hancock) -> the time
+controller ``advance``.  dt and t stay on the device as 0-d tensors,
 and the reference's negative-dt suspension makes steps past the sync time
 idle, so the host reads back once per batch (t, dt, counters), like the
 reference's readKeyStatistics, and sizes the next batch toward a
@@ -24,6 +25,7 @@ from ..domain import Domain
 from ..models import Scheme, get_scheme
 from ..ops.boundaries import apply_boundaries, interior_force_mask
 from ..ops.godunov import SchemeParams
+from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
 from ..ops.timestep import TimestepParams, advance
 from ..state import DomainStatic, FlowState, initial_carry
@@ -160,9 +162,13 @@ class Simulation:
                                     carry.dt, carry.t_hydro, params, mask,
                                     comp=comp)
             state, comp = bout if comp is not None else (bout, None)
-            out = stencil_step(self.scheme.name, state, static, carry.dt,
-                               params, comp=comp,
-                               simplified_speed=ts.simplified_speed)
+            if self.scheme.name == "muscl-hancock":
+                out = muscl_step_split(state, static, carry.dt, params,
+                                       self.config.muscl_variant, comp)
+            else:
+                out = stencil_step(self.scheme.name, state, static,
+                                   carry.dt, params, comp=comp,
+                                   simplified_speed=ts.simplified_speed)
             state, speed = out[:2]
             if comp is not None:
                 comp = out[2]

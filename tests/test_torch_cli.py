@@ -8,7 +8,7 @@ import torch
 from chip_smoke import write_glasgow_model
 from hipims_tpu.cli import main as jax_main
 from hipims_tpu.io import raster as j_raster
-from hipims_tpu.tools.model_builder import build_dam_break
+from hipims_tpu.tools.model_builder import build_dam_break, build_lake_at_rest
 from hipims_tpu_torch.cli import main as torch_main
 from hipims_tpu_torch.io import raster as t_raster
 
@@ -19,11 +19,9 @@ def _depth(path):
     return t_raster.read_raster(path).to_domain_array()
 
 
-def test_dam_break_matches_stoker_and_jax(tmp_path):
-    """The reference's verify case: L1 against the Stoker solution (the
-    JAX run gives ~0.009), and depth rasters equal to the JAX CLI's."""
+def _dam_break_vs_stoker_and_jax(tmp_path, **kw):
     for pkg in ("jax", "torch"):
-        build_dam_break(tmp_path / pkg)
+        build_dam_break(tmp_path / pkg, **kw)
     assert torch_main(["-c", str(tmp_path / "torch" / "dam-break.xml"), "-q",
                        "--platform", "cpu"]) == 0
     assert jax_main(["-c", str(tmp_path / "jax" / "dam-break.xml"), "-q",
@@ -37,6 +35,35 @@ def test_dam_break_matches_stoker_and_jax(tmp_path):
         got = _depth(tmp_path / "torch" / "output" / f"depth_{t}.tif")
         want = _depth(tmp_path / "jax" / "output" / f"depth_{t}.tif")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_dam_break_matches_stoker_and_jax(tmp_path):
+    """The reference's verify case: L1 against the Stoker solution (the
+    JAX run gives ~0.009), and depth rasters equal to the JAX CLI's."""
+    _dam_break_vs_stoker_and_jax(tmp_path)
+
+
+def test_muscl_dam_break_matches_stoker_and_jax(tmp_path):
+    """The same dam break with <scheme name="muscl-hancock">: the 2-cell
+    wall ring of the strip is the scheme's static ring."""
+    _dam_break_vs_stoker_and_jax(tmp_path, scheme="muscl-hancock")
+
+
+def test_muscl_lake_at_rest_stays_at_rest(tmp_path):
+    """Well-balancedness (MUSCL is build_lake_at_rest's default): a
+    still surface over emerging bumps stays still; depth equals the
+    validation raster (the initial depth) and the velocities stay ~0."""
+    build_lake_at_rest(tmp_path, n=32, duration=20.0)
+    assert torch_main(["-c", str(tmp_path / "lake-at-rest.xml"), "-q",
+                       "--platform", "cpu"]) == 0
+    for t in (5, 10, 15, 20):
+        got = _depth(tmp_path / "output" / f"depth_{t}.tif")
+        want = _depth(tmp_path / "validation" / f"depth_exact_{t}.asc")
+        wet = want > 0
+        np.testing.assert_allclose(got[wet], want[wet], rtol=0, atol=1e-5)
+        for vel in ("velX", "velY"):
+            v = _depth(tmp_path / "output" / f"{vel}_{t}.tif")
+            assert np.abs(np.where(v == -9999, 0, v)).max() < 1e-4
 
 
 def test_glasgow_class_volume_matches_jax(tmp_path):

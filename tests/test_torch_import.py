@@ -46,9 +46,19 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_cuda_constants_match_python():
-    """csrc/swe_common.cuh repeats the constants the kernel needs."""
-    src = (PKG / "csrc" / "swe_common.cuh").read_text()
-    for name in ("GRAVITY", "NODATA", "STOP_FLOW_EPS", "STOP_FLOW_REL"):
-        m = re.search(rf"constexpr double {name} = ([-0-9.e]+);", src)
-        assert m is not None, name
-        assert float(m.group(1)) == getattr(C, name), name
+    """Every constant the CUDA headers repeat equals its Python value (in
+    constants.py, or in ops/muscl.py for the MUSCL thresholds)."""
+    from hipims_tpu_torch.ops import muscl
+
+    seen = set()
+    for header in sorted((PKG / "csrc").glob("*.cuh")):
+        for name, value in re.findall(
+                r"constexpr double (\w+) = ([-0-9.e]+);",
+                header.read_text()):
+            python = getattr(C, name, getattr(muscl, name, None))
+            assert python is not None, (header.name, name)
+            assert float(value) == python, (header.name, name)
+            seen.add(name)
+    assert {"GRAVITY", "NODATA", "STOP_FLOW_EPS", "STOP_FLOW_REL",
+            "MINBEE_BETA", "FIRST_ORDER_DRY_DEPTH",
+            "SENTINEL_ZMAX"} <= seen

@@ -149,7 +149,7 @@ def test_stall_raises():
     (dict(config=SimulationConfig(io_mode="stream")), NotImplementedError),
     (dict(config=SimulationConfig(io_mode="auto", io_stream_cells=100)),
      NotImplementedError),
-    (dict(config=SimulationConfig(scheme="muscl-hancock")),
+    (dict(config=SimulationConfig(scheme="inertial")),
      NotImplementedError),
     (dict(config=SimulationConfig(forecast_dt_safety=0.5)), ValueError),
 ])

@@ -4,7 +4,7 @@ tests/test_pallas_stencil.py: float64 to 1e-12 (speed rel 1e-12), and
 compensated float32 over 4 steps (fields 1e-5/1e-6, z + comp 1e-6).
 
 On CPU tensors ``stencil_step`` runs its plain version; the CUDA kernel is
-held against that plain version on the card (the ``cuda`` case below,
+held against that plain version on the card (tests/test_torch_cuda.py,
 skipped without a card, and ``chip_smoke.py``).
 """
 
@@ -89,29 +89,3 @@ def test_cpu_path_never_counts_launches():
                  torch.tensor(0.05, dtype=torch.float64),
                  SchemeParams(2.0, 2.0))
     assert stencil_step.launches == before
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["f64", "f32", "f32c"])
-def test_cuda_kernel_matches_plain(mode):
-    """K1 on the card against its plain version on the same card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1 has no CPU mode)")
-    dtype = torch.float64 if mode == "f64" else torch.float32
-    jstate, jstatic = _domain(0, np.float64)
-    state = from_numpy(jstate, "cuda", dtype)
-    static = from_numpy(jstatic, "cuda", dtype)
-    comp = torch.zeros_like(state.z) if mode == "f32c" else None
-    dt = torch.tensor(0.05, dtype=dtype, device="cuda")
-    before = stencil_step.launches
-    got = stencil_step("godunov", state, static, dt, SchemeParams(2.0, 2.0),
-                       comp=comp)
-    want = stencil_step_plain(state, static, dt, SchemeParams(2.0, 2.0),
-                              comp=comp)
-    assert stencil_step.launches == before + 1
-    tol = (dict(rtol=1e-12, atol=1e-12) if mode == "f64"
-           else dict(rtol=1e-5, atol=1e-6))
-    for g, w in zip(list(got[0]) + list(got[2:]),
-                    list(want[0]) + list(want[2:])):
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **tol)
-    assert float(got[1]) == pytest.approx(float(want[1]), rel=tol["rtol"])
