@@ -9,38 +9,52 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build both kernel libraries from the checkout's sources with nvcc, in
-   parallel: K1 (csrc/stencil.cu) and the MUSCL kernels K2, K3, K5a-P and
-   K5a-C (csrc/muscl_split.cu);
+   parallel: K1 and K4 (csrc/stencil.cu), and the MUSCL kernels K2, K3,
+   K5a-P, K5a-C and K5b (csrc/muscl_split.cu);
 3. K1 against its plain PyTorch version on the card, f64 / f32 / f32c, at
    a 32x128 random case, 1408x1408 and 2944x3072 (9.04 M cells), with
    per-step times of both;
-3b. the same for the four MUSCL kernels (all 12 predictor planes, then the
-   corrector's fields), and the split12 chain (K2 -> K3) against the
-   recompute chain (K5a-P -> K5a-C);
-4. the main path: a Glasgow-class pluvial model (Godunov, 38.4 mm/h rain
-   for the first hour plus a 6 mm/h loss, closed edges, XML precision
-   "double" = compensated f32) at Thamesmead-class extent, 2944x3072 cells
-   at 2 m, 600 s simulated with depth and maxdepth rasters every 300 s,
-   run through ``hipims_tpu_torch.cli.main``; checks the rasters, the mass
-   balance against rain minus loss, and that every step launched K1;
+3b. the same for the four split MUSCL kernels (all 12 predictor planes,
+   then the corrector's fields), and the split12 chain (K2 -> K3) against
+   the recompute chain (K5a-P -> K5a-C);
+3c. the same for K4 (partial-inertial) and K5b (the fused MUSCL step),
+   and K5b against the split12 chain;
+4. the main path of the first slice: a Glasgow-class pluvial model
+   (Godunov, 38.4 mm/h rain for the first hour plus a 6 mm/h loss, closed
+   edges, XML precision "double" = compensated f32) at Thamesmead-class
+   extent, 2944x3072 cells at 2 m, 600 s simulated with depth and maxdepth
+   rasters every 300 s, run through ``hipims_tpu_torch.cli.main``; checks
+   the rasters, the mass balance against rain minus loss, and that every
+   step launched K1;
 4b. the same model with <scheme name="musclhancock">, 300 s simulated with
    rasters every 150 s: every step launches K2 and K3 (the default
    variant, split12);
 4c. the MUSCL model with ``muscl_variant="recompute"`` through the
    embedding API (load_config -> Simulation.run), 150 s: every step
    launches K5a-P and K5a-C; final depth finite, mass balance;
-5. the whole slice: the same model at 128x128 and 120 s, in float64
-   ("double-strict"), on the card and on the CPU (plain versions); the
-   final fields must agree within the f32c bounds; 5b: the same for MUSCL.
+4d. this slice's main path: the phase-4 model with <scheme
+   name="inertial">, 600 s with rasters every 300 s, through the CLI:
+   every step launches K4 and no other scheme kernel; rasters, mass
+   balance;
+4e. the Thamesmead-class breach (tools/bench_e2e.py's terrain and
+   hydrograph: Godunov, Manning 0.035, 400 m3/s through 50 west-edge
+   cells, a <timeseries type="cell"> boundary) at 2944x3072, 600 s with
+   one output event, through the CLI: every step launches K1; finite
+   rasters; the volume positive and never falling; its ratio to 400 m3/s
+   x t is printed;
+5. the first slice whole: the phase-4 model at 128x128 and 120 s, in
+   float64 ("double-strict"), on the card and on the CPU (plain
+   versions); the final fields must agree within the f32c bounds; 5b: the
+   same for MUSCL; 5c: for the inertial model; 5d: for the breach.
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
    tests/test_torch_cli.py.)
 
-The line before the last is a JSON record of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+The line before the last is a JSON record of the seven kernels; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this file, it prints no result and exits with status 2.
-Weights are random terrain made from fixed seeds; nothing is downloaded.
+Terrain and inputs are made from fixed seeds; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -66,10 +80,16 @@ TOL = {"f64": (1e-12, 1e-12), "f32": (1e-5, 1e-6), "f32c": (1e-5, 1e-6)}
 TRUE_SURFACE_TOL = 1e-6
 MASS_BALANCE_REL = 0.01
 
+# The card's peaks for ``bound_ms`` (NVIDIA's H100 SXM data sheet: HBM
+# 3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores; float64 34
+# TFLOP/s).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f32c": 67e12, "f64": 34e12}
+
 XML = """<?xml version="1.0"?>
 <configuration>
-  <metadata><name>glasgow-class</name>
-    <description>Synthetic Glasgow-class pluvial model</description>
+  <metadata><name>{name}</name>
+    <description>{desc}</description>
   </metadata>
   <simulation>
     <parameter name="duration" value="{duration}" />
@@ -80,7 +100,7 @@ XML = """<?xml version="1.0"?>
         <data sourceDir="topography/" targetDir="output/">
           <dataSource type="raster" value="structure,dem" source="dem.tif" />
           <dataSource type="constant" value="manningCoefficient"
-                      source="0.04" />
+                      source="{manning}" />
           <dataTarget type="raster" value="depth" format="GTiff"
                       target="depth_%t.tif" />
           <dataTarget type="raster" value="maxdepth" format="GTiff"
@@ -95,17 +115,37 @@ XML = """<?xml version="1.0"?>
           <domainEdge edge="south" treatment="closed" />
           <domainEdge edge="east" treatment="closed" />
           <domainEdge edge="west" treatment="closed" />
-          <timeseries type="atmospheric" name="Rain"
-                      value="rain-intensity" source="rain.csv" />
-          <timeseries type="atmospheric" name="Drain"
-                      value="loss-rate" source="drain.csv" />
+          {boundaries}
         </boundaryConditions>
       </domain>
     </domainSet>
   </simulation>
 </configuration>
 """
+RAIN_BOUNDARIES = """<timeseries type="atmospheric" name="Rain"
+                      value="rain-intensity" source="rain.csv" />
+          <timeseries type="atmospheric" name="Drain"
+                      value="loss-rate" source="drain.csv" />"""
+BREACH_BOUNDARY = """<timeseries type="cell" name="Breach" value="discharge"
+                      source="hydrograph.csv" mapFile="breach.csv"
+                      depthValue="ignore" dischargeValue="total" />"""
 RAIN_MM_H, LOSS_MM_H = 38.4, 6.0
+BREACH_M3_S = 400.0
+
+# Kernel against plain cases: (rows, cols, kernel reps, plain reps); the
+# last is the main paths' grid, Thamesmead-class 9.04 M cells.
+CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (2944, 3072, 10, 2))
+
+
+def _write_dem(root, bed, dx):
+    from hipims_tpu_torch.io.raster import Raster, write_raster
+
+    root = Path(root)
+    (root / "topography").mkdir(parents=True, exist_ok=True)
+    (root / "boundaries").mkdir(parents=True, exist_ok=True)
+    write_raster(root / "topography" / "dem.tif",
+                 Raster(data=np.asarray(bed[::-1, :], np.float32),
+                        xll=0.0, yll=0.0, cell_size=dx, nodata=-9999.0))
 
 
 def write_glasgow_model(root, rows, cols, duration, outfreq,
@@ -114,25 +154,48 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
     tools/bench_e2e.py build_glasgow_class) at any extent, with the XML's
     ``scheme`` name; returns the XML path.  Uses the port's own raster
     writer."""
-    from hipims_tpu_torch.io.raster import Raster, write_raster
-
     root = Path(root)
-    (root / "topography").mkdir(parents=True, exist_ok=True)
-    (root / "boundaries").mkdir(parents=True, exist_ok=True)
     yy, xx = np.mgrid[0:rows, 0:cols]
-    bed = (30.0 - xx * dx * 0.01
-           + 1.5 * np.sin(yy / 12.0) * np.sin(xx / 17.0)
-           + 0.5 * np.sin(yy / 3.1) * np.cos(xx / 4.3))
-    write_raster(root / "topography" / "dem.tif",
-                 Raster(data=np.asarray(bed[::-1, :], np.float32),
-                        xll=0.0, yll=0.0, cell_size=dx, nodata=-9999.0))
+    _write_dem(root, 30.0 - xx * dx * 0.01
+               + 1.5 * np.sin(yy / 12.0) * np.sin(xx / 17.0)
+               + 0.5 * np.sin(yy / 3.1) * np.cos(xx / 4.3), dx)
     (root / "boundaries" / "rain.csv").write_text(
         f"Time,Rate\n0,{RAIN_MM_H}\n3600,0\n7200,0\n")
     (root / "boundaries" / "drain.csv").write_text(
         f"Time,Rate\n0,{LOSS_MM_H}\n7200,{LOSS_MM_H}\n")
     xml = root / "model.xml"
-    xml.write_text(XML.format(duration=duration, outfreq=outfreq,
-                              precision=precision, scheme=scheme))
+    xml.write_text(XML.format(
+        name="glasgow-class", desc="Synthetic Glasgow-class pluvial model",
+        duration=duration, outfreq=outfreq, precision=precision,
+        manning=0.04, scheme=scheme, boundaries=RAIN_BOUNDARIES))
+    return xml
+
+
+def write_thamesmead_model(root, rows, cols, duration, outfreq,
+                           precision="double", dx=2.0):
+    """Write the Thamesmead-class breach (tools/bench_e2e.py
+    build_thamesmead_class: a dry floodplain rising 0.2% away from the
+    river edge, 400 m3/s for the first 2 h through 50 cells of the second
+    column, a <timeseries type="cell"> boundary; Godunov, Manning 0.035)
+    at any extent; returns the XML path."""
+    root = Path(root)
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    _write_dem(root, 2.0 + xx * dx * 0.002
+               + 0.2 * np.sin(yy / 40.0) * np.sin(xx / 60.0), dx)
+    nb = min(25, rows // 4)
+    (root / "boundaries" / "breach.csv").write_text("\n".join(
+        f"{1.0 * dx + 0.01},{(rows // 2 + i) * dx + 0.01}"
+        for i in range(-nb, nb)) + "\n")
+    hydro = ["Time,Depth,Qx,Qy"] + [
+        f"{t},0,{BREACH_M3_S if t < 7200 else 0.0},0"
+        for t in range(0, max(int(duration), 7200) + 1, 3600)]
+    (root / "boundaries" / "hydrograph.csv").write_text(
+        "\n".join(hydro) + "\n")
+    xml = root / "model.xml"
+    xml.write_text(XML.format(
+        name="thamesmead-class", desc="Synthetic Thamesmead-class breach",
+        duration=duration, outfreq=outfreq, precision=precision,
+        manning=0.035, scheme="godunov", boundaries=BREACH_BOUNDARY))
     return xml
 
 
@@ -226,36 +289,67 @@ def _agree(who, mode, pairs, bars=None):
     return worst
 
 
-def phase_kernel_vs_plain(torch, device):
-    """Phase 3: K1 against its plain version on the card."""
+def phase_fused_vs_plain(torch, device, schemes, label):
+    """Phases 3 and 3c: the fused step kernel of each scheme in
+    ``schemes`` (K1 "godunov", K4 "inertial", K5b "muscl-hancock")
+    against its plain version on the card and on the same inputs, with
+    per-step times of both.  With "muscl-hancock", K5b is also held
+    against the split12 chain (K2 -> K3) at the JAX package's bar for two
+    MUSCL paths (rel 1e-13); bit-equal is expected.  Returns the largest
+    |diff| per kernel, the times per (kernel, rows, cols, mode) and the
+    largest K5b-split12 |diff|."""
     from hipims_tpu_torch.ops.godunov import SchemeParams
-    from hipims_tpu_torch.ops.kernels.stencil import (stencil_step,
-                                                      stencil_step_plain)
+    from hipims_tpu_torch.ops.kernels import muscl_split as ms
+    from hipims_tpu_torch.ops.kernels import stencil as st
 
     params = SchemeParams(dx=2.0, dy=2.0)
-    worst = 0.0
+    kernels = {s: dict(zip(("godunov", "inertial", "muscl-hancock"),
+                           st.KERNELS))[s].__name__ for s in schemes}
+    worst = {k: 0.0 for k in kernels.values()}
     times = {}
-    for rows, cols, reps in ((32, 128, 20), (1408, 1408, 20),
-                             (2944, 3072, 10)):
+    split_diff = 0.0
+    for rows, cols, reps, plain_reps in CASES:
         arrs = random_domain(0, rows, cols)
         for mode in ("f64", "f32", "f32c"):
             state, static, comp, dt = _card_inputs(torch, device, arrs, mode)
-            got = stencil_step("godunov", state, static, dt, params,
-                               comp=comp)
-            want = stencil_step_plain(state, static, dt, params, comp=comp)
-            torch.cuda.synchronize()
-            worst = max(worst, _agree(
-                f"K1 disagrees with the plain version: {rows}x{cols}", mode,
-                _step_pairs(got, want)))
-            k_ms = _time_ms(torch, lambda: stencil_step(
-                "godunov", state, static, dt, params, comp=comp), reps)
-            p_ms = _time_ms(torch, lambda: stencil_step_plain(
-                state, static, dt, params, comp=comp), reps)
-            times[(rows, cols, mode)] = (k_ms, p_ms)
-            print(f"phase 3: K1 vs plain {rows}x{cols} {mode}: agree "
-                  f"(max|diff| over fields so far {worst:.3e}); per step "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
-    return worst, times
+            for scheme, name in kernels.items():
+                simple = scheme == "inertial"
+
+                def kernel():
+                    return st.stencil_step(scheme, state, static, dt, params,
+                                           comp=comp, simplified_speed=simple)
+
+                def plain():
+                    return st.PLAIN[scheme](state, static, dt, params,
+                                            comp=comp,
+                                            simplified_speed=simple)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name], _agree(
+                    f"{name} disagrees with the plain version: "
+                    f"{rows}x{cols}", mode, _step_pairs(got, want)))
+                if scheme == "muscl-hancock":
+                    split = ms.muscl_step_split(state, static, dt, params,
+                                                "split12", comp)
+                    torch.cuda.synchronize()
+                    split_diff = max(split_diff, _agree(
+                        f"K5b and split12 differ at {rows}x{cols}", mode,
+                        _step_pairs(got, split), bars=(1e-13, 1e-15)))
+                times[(name, rows, cols, mode)] = (
+                    _time_ms(torch, kernel, reps),
+                    _time_ms(torch, plain, plain_reps))
+            per_step = ", ".join(
+                f"{n} {times[(n, rows, cols, mode)][0]:.4f} / "
+                f"{times[(n, rows, cols, mode)][1]:.4f}"
+                for n in kernels.values())
+            print(f"phase {label}: fused steps vs plain {rows}x{cols} {mode}: "
+                  "agree (max|diff| so far "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+                  + (f"; K5b vs split12 {split_diff:.3e}"
+                     if "muscl-hancock" in kernels else "")
+                  + f"); per step kernel / plain ms: {per_step}", flush=True)
+    return worst, times, split_diff
 
 
 def phase_muscl_vs_plain(torch, device):
@@ -274,9 +368,7 @@ def phase_muscl_vs_plain(torch, device):
                             ms.muscl_correct_recompute)}
     worst = {k.__name__: 0.0 for k in ms.KERNELS}
     times = {}
-    for rows, cols, reps, plain_reps in ((32, 128, 20, 5),
-                                         (1408, 1408, 20, 3),
-                                         (2944, 3072, 10, 2)):
+    for rows, cols, reps, plain_reps in CASES:
         arrs = random_domain(0, rows, cols)
         for mode in ("f64", "f32", "f32c"):
             state, static, comp, dt = _card_inputs(torch, device, arrs, mode)
@@ -332,8 +424,7 @@ def kernel_wrappers():
     """Every kernel wrapper of the port by name; each counts its launches
     in ``.launches``."""
     from hipims_tpu_torch.ops.kernels import muscl_split, stencil
-    return {k.__name__: k for k in (stencil.stencil_step,
-                                    *muscl_split.KERNELS)}
+    return {k.__name__: k for k in (*stencil.KERNELS, *muscl_split.KERNELS)}
 
 
 def _reset_launches():
@@ -352,23 +443,13 @@ def _forced_volume(rows, cols, ring, duration):
     return (RAIN_MM_H - LOSS_MM_H) / 3.6e6 * duration * forced
 
 
-def run_main_path(root, device, rows, cols, duration, outfreq,
-                  mass_tol=MASS_BALANCE_REL, scheme="godunov"):
-    """Phase 4: write the model with the XML's ``scheme`` name, run it
-    through the CLI on ``device`` ("gpu" or "cpu"), check outputs and mass
-    balance.  Returns a dict of what it measured, with the launches of
-    every kernel wrapper during the run.
-
-    Rain and loss apply in hydrological chunks of >= 1 s, so the last
-    partial chunk (< 1 s of forcing) is missing at the end of a run:
-    0.17% of 600 s, but several percent of a very short run, which then
-    needs a looser ``mass_tol``."""
+def _run_cli(xml, device):
+    """Run ``xml`` through the CLI with --mass-balance on ``device`` ("gpu"
+    or "cpu").  Returns what it measured: wall and run seconds, steps
+    (+ idle), the volume at each output event, the launches of every
+    kernel wrapper during the run and the log."""
     from hipims_tpu_torch.cli import main as cli_main
-    from hipims_tpu_torch.io.raster import read_raster
-    from hipims_tpu_torch.models import get_scheme
 
-    xml = write_glasgow_model(root, rows, cols, duration, outfreq,
-                              scheme=scheme)
     buf = io.StringIO()
     _reset_launches()
     t0 = time.perf_counter()
@@ -383,14 +464,22 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
     m = re.search(r"Iterations:\s+(\d+) \(\+(\d+) idle\)", out)
     if m is None:
         raise RuntimeError(f"no iteration count in the CLI output:\n{out}")
-    steps, idle = int(m.group(1)), int(m.group(2))
     # The CLI times Simulation.run (steps + output writes); the rest of
     # the wall is set-up: model load, Domain.build, transfer to device.
     run_s = float(re.search(r"Simulated:.* in ([0-9.]+) s wall",
                             out).group(1))
+    vols = [float(v) for v in re.findall(r"volume=([0-9.eE+-]+) m3", out)]
+    return dict(wall_s=wall, run_s=run_s, steps=int(m.group(1)),
+                idle=int(m.group(2)), launches=launches, volumes=vols,
+                log=out)
 
-    n_out = int(round(duration / outfreq))
-    for k in range(1, n_out + 1):
+
+def _check_rasters(root, rows, cols, duration, outfreq):
+    """Every output event wrote finite depth and maxdepth rasters of the
+    full shape."""
+    from hipims_tpu_torch.io.raster import read_raster
+
+    for k in range(1, int(round(duration / outfreq)) + 1):
         label = f"{k * outfreq:g}"
         for value in ("depth", "maxdepth"):
             path = Path(root) / "output" / f"{value}_{label}.tif"
@@ -400,19 +489,56 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
                                    f"{r.data.shape}, finite="
                                    f"{bool(np.isfinite(r.data).all())}")
 
-    vols = [float(v) for v in re.findall(r"volume=([0-9.eE+-]+) m3", out)]
+
+def run_main_path(root, device, rows, cols, duration, outfreq,
+                  mass_tol=MASS_BALANCE_REL, scheme="godunov"):
+    """Phases 4, 4b and 4d: write the pluvial model with the XML's
+    ``scheme`` name, run it through the CLI on ``device`` ("gpu" or
+    "cpu"), check outputs and mass balance.  Returns a dict of what it
+    measured, with the launches of every kernel wrapper during the run.
+
+    Rain and loss apply in hydrological chunks of >= 1 s, so the last
+    partial chunk (< 1 s of forcing) is missing at the end of a run:
+    0.17% of 600 s, but several percent of a very short run, which then
+    needs a looser ``mass_tol``."""
+    from hipims_tpu_torch.models import get_scheme
+
+    xml = write_glasgow_model(root, rows, cols, duration, outfreq,
+                              scheme=scheme)
+    res = _run_cli(xml, device)
+    _check_rasters(root, rows, cols, duration, outfreq)
+    vols, n_out = res["volumes"], int(round(duration / outfreq))
     if len(vols) != n_out:
-        raise RuntimeError(f"expected {n_out} mass-balance lines:\n{out}")
-    ring = get_scheme(re.search(r"Scheme:\s+(\S+)", out).group(1)).radius
+        raise RuntimeError(f"expected {n_out} mass-balance lines:\n"
+                           f"{res['log']}")
+    ring = get_scheme(re.search(r"Scheme:\s+(\S+)",
+                                res["log"]).group(1)).radius
     expected = _forced_volume(rows, cols, ring, duration)
     rel = (vols[-1] - expected) / expected
     if abs(rel) > mass_tol:
         raise RuntimeError(f"mass balance off by {rel:+.4%}: volume "
                            f"{vols[-1]:.3f} m3, rain - loss {expected:.3f}")
-    return dict(wall_s=wall, run_s=run_s, steps=steps, idle=idle,
-                launches=launches,
-                volume=vols[-1], expected=expected, rel=rel,
-                cells=rows * cols, log=out)
+    return dict(res, volume=vols[-1], expected=expected, rel=rel,
+                cells=rows * cols)
+
+
+def run_breach_path(root, device, rows, cols, duration, outfreq):
+    """Phase 4e: write the Thamesmead-class breach, run it through the CLI
+    on ``device``, check the rasters and that the volume is positive and
+    never falls between output events (a closed domain that only gains
+    water).  Returns what it measured, with the volume's ratio to
+    400 m3/s x t: the reference's cell forcing raises a cell by q dt / dy
+    for its share q of the discharge, which is not Q t by construction."""
+    xml = write_thamesmead_model(root, rows, cols, duration, outfreq)
+    res = _run_cli(xml, device)
+    _check_rasters(root, rows, cols, duration, outfreq)
+    vols = res["volumes"]
+    if (len(vols) != int(round(duration / outfreq)) or vols[0] <= 0.0
+            or any(b < a for a, b in zip(vols, vols[1:]))):
+        raise RuntimeError(f"breach volumes {vols}: expected one positive, "
+                           f"non-decreasing value per output event")
+    return dict(res, volume=vols[-1], cells=rows * cols,
+                ratio=vols[-1] / (BREACH_M3_S * duration))
 
 
 def run_api_path(root, device, rows, cols, duration, variant,
@@ -447,13 +573,11 @@ def run_api_path(root, device, rows, cols, duration, variant,
                 launches=launches, rel=rel)
 
 
-def phase_slice_gpu_vs_cpu(torch, root, scheme="godunov"):
-    """Phase 5: the same model at 128x128 and 120 s, float64, on the card
+def phase_slice_gpu_vs_cpu(torch, xml):
+    """Phase 5: the model ``xml`` (128x128, 120 s, float64) on the card
     and on the CPU; final fields within the f32c bounds."""
     from hipims_tpu_torch.io.xml_config import load_config
 
-    xml = write_glasgow_model(root, 128, 128, 120.0, 120.0,
-                              precision="double-strict", scheme=scheme)
     sims = {}
     for dev in ("cuda", "cpu"):
         model = load_config(xml)
@@ -498,6 +622,82 @@ def _main_path_line(label, rows, cols, duration, res, smi):
             f"launches: {counts}")
 
 
+# The least work of each kernel for ``bound_ms``.  Bytes: each input plane
+# read once and each output plane written once (PERF.md section 3), the
+# comp plane read and written in f32c where the kernel takes it.
+# Operations: counted from the CUDA sources, one per add, subtract,
+# multiply, divide, min/max, compare, sqrt, exp or log, rounded to tens:
+# ``fixed`` for every cell, and ``second`` for each second-order predictor
+# evaluation (predict_cell, or a rebuilt slope in K5a-C), of which a cell
+# makes ``evals`` on its neighbourhood; first-order cells skip that work.
+# name: (planes in, planes out, takes comp, fixed, second, evals)
+KERNEL_COST = {
+    "godunov_fused": (6, 4, True, 430, 0, 0),
+    "inertial_fused": (6, 4, True, 160, 0, 0),
+    "muscl_fused": (6, 4, True, 550, 180, 5),
+    "muscl_predict": (5, 12, False, 10, 180, 1),
+    "muscl_predict_base": (5, 4, False, 10, 180, 1),
+    "muscl_correct": (18, 4, True, 500, 0, 0),
+    "muscl_correct_recompute": (10, 4, True, 540, 30, 6),
+}
+
+
+def kernel_bound(name, mode, cells, second_share):
+    """(bound_ms, bound_by): the larger of the bytes ``name`` must move
+    over the HBM rate and its operations over the card's peak for
+    ``mode``'s type, for ``cells`` cells of which ``second_share`` take
+    the second-order predictor."""
+    p_in, p_out, takes_comp, fixed, second, evals = KERNEL_COST[name]
+    planes = p_in + p_out + (2 if takes_comp and mode == "f32c" else 0)
+    nbytes = planes * (8 if mode == "f64" else 4) * cells
+    ops = cells * (fixed + evals * second_share * second)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[mode] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def second_order_share(torch, device, arrs):
+    """The share of cells that take the second-order MUSCL predictor on
+    the random domain ``arrs`` (the rest fall back to first order)."""
+    from hipims_tpu_torch.ops.muscl import interior_slopes
+
+    z, zmax, qx, qy, zb, _ = (torch.as_tensor(a, device=device) for a in arrs)
+    first_order = interior_slopes(z, zmax, qx, qy, zb, 1e-10)[0]
+    return 1.0 - float(first_order.double().mean())
+
+
+KERNEL_SOURCES = {
+    # name: (source under hipims_tpu_torch/csrc, the TPU kernel it replaces)
+    "godunov_fused": ("stencil.cu", "stencil.py:226"),
+    "inertial_fused": ("stencil.cu", "stencil.py:226"),
+    "muscl_fused": ("muscl_split.cu", "stencil.py:226"),
+    "muscl_predict": ("muscl_split.cu", "muscl_split.py:68"),
+    "muscl_correct": ("muscl_split.cu", "muscl_split.py:112"),
+    "muscl_predict_base": ("muscl_split.cu", "muscl_split.py:202"),
+    "muscl_correct_recompute": ("muscl_split.cu", "muscl_split.py:237"),
+}
+
+
+def kernels_record(times, err, launches, cells, share):
+    """The kernels line's entries: for each kernel its f32c kernel and
+    plain times at ``cells`` cells (``times`` by (name, rows, cols,
+    mode)), its largest |diff| against the plain version, its launches on
+    its main path, and its bound computed for these inputs."""
+    record = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        (k_ms, p_ms), = [t for (n, r, c, m), t in times.items()
+                         if n == name and r * c == cells and m == "f32c"]
+        bound, bound_by = kernel_bound(name, "f32c", cells, share)
+        record.append(dict(
+            name=name, route="cuda",
+            source=f"hipims_tpu_torch/csrc/{source}",
+            replaces=f"hipims_tpu/ops/pallas/{replaces}",
+            launches=launches[name], max_abs_err=err[name], ms=k_ms,
+            plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+            library_ms=None))
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -511,6 +711,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # Phase 1: the card.
     smi = subprocess.run(
@@ -529,21 +730,31 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda m: m._lib(), (stencil, muscl_split)))
-    print(f"phase 2: built K1 (csrc/stencil.cu) and the MUSCL kernels "
-          f"(csrc/muscl_split.cu) in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"phase 2: built K1 and K4 (csrc/stencil.cu) and the MUSCL kernels "
+          f"K2, K3, K5a-P, K5a-C and K5b (csrc/muscl_split.cu) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # Phase 3: K1 against the plain version; 3b: the MUSCL kernels.
-    max_err, times = phase_kernel_vs_plain(torch, device)
+    # Phase 3: K1 against the plain version; 3b: the split MUSCL kernels;
+    # 3c: K4 and K5b (K5b's launches are the ones counted here: no
+    # Simulation path takes it, as in the JAX package).
+    err, times, _ = phase_fused_vs_plain(torch, device, ["godunov"], "3")
     muscl_err, muscl_times = phase_muscl_vs_plain(torch, device)
+    _reset_launches()
+    err_c, times_c, split_diff = phase_fused_vs_plain(
+        torch, device, ["inertial", "muscl-hancock"], "3c")
+    k5b_launches = _read_launches()["muscl_fused"]
+    err.update(muscl_err)
+    err.update(err_c)
+    times.update(times_c)
+    times.update(muscl_times)
 
-    rows, cols = 2944, 3072
+    rows, cols = CASES[-1][:2]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # Phase 4: the Godunov main path at 9.04 M cells.
         res = run_main_path(Path(tmp) / "main", "gpu", rows, cols,
                             600.0, 300.0)
         _expect_launches("phase 4", res["launches"], {
-            "stencil_step": res["steps"] + res["idle"]})
+            "godunov_fused": res["steps"] + res["idle"]})
         print(_main_path_line("phase 4: main path", rows, cols, 600.0, res,
                               smi), flush=True)
 
@@ -568,31 +779,59 @@ def main() -> int:
               f"{res_c['wall_s']:.2f} s; mass balance {res_c['rel']:+.4%}; "
               f"launches {total} each", flush=True)
 
-        # Phase 5: the whole slice, card against CPU; 5b: MUSCL.
-        for label, scheme in (("5", "godunov"), ("5b", "musclhancock")):
-            steps5, err5 = phase_slice_gpu_vs_cpu(
-                torch, Path(tmp) / f"slice_{scheme}", scheme)
-            print(f"phase {label}: 128x128 120 s f64 {scheme} slice, card vs "
+        # Phase 4d: this slice's main path, the partial-inertial scheme.
+        res_d = run_main_path(Path(tmp) / "inertial", "gpu", rows, cols,
+                              600.0, 300.0, scheme="inertial")
+        _expect_launches("phase 4d", res_d["launches"], {
+            "inertial_fused": res_d["steps"] + res_d["idle"]})
+        print(_main_path_line("phase 4d: inertial main path", rows, cols,
+                              600.0, res_d, smi), flush=True)
+
+        # Phase 4e: the breach, a per-cell boundary, on the Godunov kernel.
+        res_e = run_breach_path(Path(tmp) / "breach", "gpu", rows, cols,
+                                600.0, 600.0)
+        _expect_launches("phase 4e", res_e["launches"], {
+            "godunov_fused": res_e["steps"] + res_e["idle"]})
+        setup_e = res_e["wall_s"] - res_e["run_s"]
+        print(f"phase 4e: Thamesmead-class breach {rows}x{cols} f32c, 600 s "
+              f"simulated: {res_e['steps']} steps (+{res_e['idle']} idle), "
+              f"wall {res_e['wall_s']:.2f} s (set-up {setup_e:.1f} s, run "
+              f"with outputs {res_e['run_s']:.1f} s) on {smi}; volume "
+              f"{res_e['volume']:.1f} m3 against {BREACH_M3_S:g} m3/s x "
+              f"600 s = {BREACH_M3_S * 600.0:.1f} m3 (ratio "
+              f"{res_e['ratio']:.4f}); launches: godunov_fused "
+              f"{res_e['launches']['godunov_fused']}", flush=True)
+
+        # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
+        # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
+        slices = [(label, scheme, write_glasgow_model(
+                       Path(tmp) / f"slice_{scheme}", 128, 128, 120.0,
+                       120.0, precision="double-strict", scheme=scheme))
+                  for label, scheme in (("5", "godunov"),
+                                        ("5b", "musclhancock"),
+                                        ("5c", "inertial"))]
+        slices.append(("5d", "breach", write_thamesmead_model(
+            Path(tmp) / "slice_breach", 128, 128, 120.0, 120.0,
+            precision="double-strict")))
+        for label, what, xml in slices:
+            steps5, err5 = phase_slice_gpu_vs_cpu(torch, xml)
+            print(f"phase {label}: 128x128 120 s f64 {what} slice, card vs "
                   f"CPU: {steps5} steps, fields agree (max|diff| "
                   f"{err5:.3e})", flush=True)
 
-    src = "hipims_tpu_torch/csrc/muscl_split.cu"
-    tpu = "hipims_tpu/ops/pallas/muscl_split.py"
-    kernels = [("godunov_step", "hipims_tpu_torch/csrc/stencil.cu",
-                "hipims_tpu/ops/pallas/stencil.py:226",
-                res["launches"]["stencil_step"], max_err,
-                times[(rows, cols, "f32c")]),
-               *((name, src, f"{tpu}:{line}", run["launches"][name],
-                  muscl_err[name], muscl_times[(name, rows, cols, "f32c")])
-                 for name, line, run in (
-                     ("muscl_predict", 68, res_b),
-                     ("muscl_correct", 112, res_b),
-                     ("muscl_predict_base", 202, res_c),
-                     ("muscl_correct_recompute", 237, res_c)))]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": rep,
-         "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
-        for name, source, rep, n, err, t in kernels]}))
+    # The kernels line: launches on each kernel's main path, times and
+    # bounds of one f32c step at 9.04 M cells on the random domain.
+    share = second_order_share(torch, device, random_domain(0, rows, cols))
+    launches = {**res["launches"], **{k: res_b["launches"][k] for k in (
+        "muscl_predict", "muscl_correct")}, **{k: res_c["launches"][k] for
+        k in ("muscl_predict_base", "muscl_correct_recompute")},
+        "inertial_fused": res_d["launches"]["inertial_fused"],
+        "muscl_fused": k5b_launches}
+    record = kernels_record(times, err, launches, rows * cols, share)
+    print(f"K5b vs split12 max|diff| {split_diff:.3e}; second-order share "
+          f"of the random domain {share:.4f}; chip_smoke wall "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // Device functions of the MUSCL-Hancock kernels: the MINMOD limiter, the
-// limited slope vector, the predictor's first-order mask and face fluxes.
+// limited slope vector, the predictor's first-order mask and face fluxes,
+// and the whole predictor of one cell.
 //
 // Line-for-line transcriptions of hipims_tpu_torch/ops/limiters.py and
 // ops/muscl.py, under the rules of swe_common.cuh (same operation order,
@@ -114,6 +115,51 @@ template <typename T>
 __device__ __forceinline__ Flux3<T> flux_y(const Quad<T>& f, T vs) {
   const T v = (f.h < vs) ? T(0) : f.qy / f.h;
   return Flux3<T>{f.qy, v * f.qx, v * f.qy + face_pressure(f)};
+}
+
+// ops/muscl.py::muscl_predictor_base_slopes for the one cell i of the
+// one-ring interior: its half-step base state (z, h, qx, qy) and its
+// limited slopes sx and sy.  A first-order cell keeps its state as base and
+// gets zero slopes.  half_dt is 0.5 * dt.
+template <typename T>
+__device__ __forceinline__ void predict_cell(
+    const T* __restrict__ z, const T* __restrict__ zmax,
+    const T* __restrict__ qx, const T* __restrict__ qy,
+    const T* __restrict__ zb, int64_t i, int cols, T half_dt, T inv_dx,
+    T inv_dy, T vs, Quad<T>& base, Quad<T>& sx_out, Quad<T>& sy_out) {
+  const T zc = z[i], zbc = zb[i], qxc = qx[i], qyc = qy[i];
+  base = Quad<T>{zc, zc - zbc, qxc, qyc};
+  sx_out = Quad<T>{T(0), T(0), T(0), T(0)};
+  sy_out = sx_out;
+  if (cell_first_order(z, zmax, zb, i, cols)) return;
+
+  const Quad<T> sx = cell_slope(z, zb, qx, qy, i, 1, vs);
+  const Quad<T> sy = cell_slope(z, zb, qx, qy, i, cols, vs);
+  const Quad<T> ex_n0 = extrap(base, sy, T(0.5));
+  const Quad<T> ex_e0 = extrap(base, sx, T(0.5));
+  const Quad<T> ex_s0 = extrap(base, sy, T(-0.5));
+  const Quad<T> ex_w0 = extrap(base, sx, T(-0.5));
+  const Flux3<T> fn = flux_y(ex_n0, vs);
+  const Flux3<T> fe = flux_x(ex_e0, vs);
+  const Flux3<T> fs = flux_y(ex_s0, vs);
+  const Flux3<T> fw = flux_x(ex_w0, vs);
+
+  const T src_x = T(-GRAVITY * 0.5) * (ex_e0.z + ex_w0.z) *
+                  ((ex_e0.z - ex_e0.h) - (ex_w0.z - ex_w0.h)) * inv_dx;
+  const T src_y = T(-GRAVITY * 0.5) * (ex_n0.z + ex_s0.z) *
+                  ((ex_n0.z - ex_n0.h) - (ex_s0.z - ex_s0.h)) * inv_dy;
+  const T d_z =
+      round_small((fe.m - fw.m) * inv_dx + (fn.m - fs.m) * inv_dy, vs);
+  const T d_qx = round_small(
+      (fe.x - fw.x) * inv_dx + (fn.x - fs.x) * inv_dy - src_x, vs);
+  const T d_qy = round_small(
+      (fe.y - fw.y) * inv_dx + (fn.y - fs.y) * inv_dy - src_y, vs);
+
+  const T z_half = zc - half_dt * d_z;
+  base = Quad<T>{z_half, z_half - zbc, qxc - half_dt * d_qx,
+                 qyc - half_dt * d_qy};
+  sx_out = sx;
+  sy_out = sy;
 }
 
 }  // namespace swe

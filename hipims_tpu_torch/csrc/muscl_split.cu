@@ -1,48 +1,61 @@
 // MUSCL-Hancock as two kernels: the half-step predictor (K2, and K5a-P
 // without slopes) and the corrector with its CFL partial max (K3, and K5a-C
-// that recomputes the slopes).
+// that recomputes the slopes); and as one kernel (K5b) that runs the whole
+// step.
 //
 // Replaces the split Pallas kernels of hipims_tpu/ops/pallas/muscl_split.py
 // (reached through muscl_step_pallas_split): _predictor_kernel (variant
 // "split12"), _corrector_kernel, _predictor_base_kernel and
-// _corrector_recompute_kernel (variant "recompute").  They compute exactly
-// what the plain PyTorch versions do (hipims_tpu_torch/ops/kernels/
-// muscl_split.py muscl_predict_plain / muscl_correct_plain):
-//   * predictor, per cell of the one-ring interior: the first-order mask,
-//     the MINMOD slopes, the half-step update, and out the base state
-//     (z, h, qx, qy) plus, with STORE_SLOPES, the limited slopes sx(4) and
-//     sy(4), zero on first-order cells; cells of the one-cell edge ring get
-//     the first-order placeholder (z, z - zb, qx, qy) and zero slopes;
+// _corrector_recompute_kernel (variant "recompute"); and the fused Pallas
+// kernel hipims_tpu/ops/pallas/stencil.py::_kernel with scheme
+// "muscl-hancock" (K5b, reached through stencil_step_pallas).  They compute
+// exactly what the plain PyTorch versions do (hipims_tpu_torch/ops/kernels/
+// muscl_split.py muscl_predict_plain / muscl_correct_plain /
+// muscl_step_plain):
+//   * predictor, per cell of the one-ring interior (predict_cell,
+//     muscl_common.cuh): the first-order mask, the MINMOD slopes, the
+//     half-step update, and out the base state (z, h, qx, qy) plus, with
+//     STORE_SLOPES, the limited slopes sx(4) and sy(4), zero on first-order
+//     cells; cells of the one-cell edge ring get the first-order
+//     placeholder (z, z - zb, qx, qy) and zero slopes;
 //   * corrector, per cell outside the two-cell ring: its own four faces
 //     and the facing faces of its four neighbours, each base +- 0.5 slope,
-//     with the slopes loaded or (RECOMPUTE) rebuilt from the radius-2 state
-//     neighbourhood; the four MUSCL interfaces (swe_common.cuh), datum
-//     terms and sources, the update (Neumaier comp_add when COMP), implicit
-//     friction, the dry clamp (judged on z + comp when COMP) BEFORE the
-//     max-FSL update, and the skips: disabled cell, a dry centre whose four
-//     neighbours have zmax below the threshold (a reference quirk), dt <= 0;
-//     the two-cell ring keeps its values; then the CFL speed of every cell
-//     of the new state, reduced to one partial max per block.
+//     with the slopes loaded (STORED) or rebuilt from the radius-2 state
+//     neighbourhood (RECOMPUTE), or, in K5b (FUSED), the predictor of all
+//     five cells run inline from the state; the four MUSCL interfaces
+//     (swe_common.cuh), datum terms and sources, the update (Neumaier
+//     comp_add when COMP), implicit friction, the dry clamp (judged on
+//     z + comp when COMP) BEFORE the max-FSL update, and the skips:
+//     disabled cell, a dry centre whose four neighbours have zmax below the
+//     threshold (a reference quirk), dt <= 0; the two-cell ring keeps its
+//     values; then the CFL speed of every cell of the new state, reduced to
+//     one partial max per block.
 //
 // What bounds them on an H100: device memory traffic.  Planes moved per
 // step (predictor in + out, then corrector in + out):
 //   split12   5 + 12 + 18 + 4 = 39 planes: 156 B/cell f32, 164 B/cell f32c
 //             (comp read and written), 312 B/cell f64;
 //   recompute 5 + 4 + 10 + 4 = 23 planes:  92 B/cell f32, 100 B/cell f32c,
-//             184 B/cell f64.
+//             184 B/cell f64;
+//   K5b       6 + 4 = 10 planes, as K1: 40 B/cell f32, 48 f32c, 80 f64.
 // At 3.35 TB/s a 9.04 M-cell step cannot take less than 0.42 ms (split12
-// f32), 0.44 ms (f32c), 0.84 ms (f64); recompute 0.25 / 0.27 / 0.50 ms.
-// These are lower bounds derived from the plane counts, not measurements.
-// Measured on one H100 80GB HBM3 at a 700 W power limit (PERF.md), the
-// predictors reach ~60% of that bandwidth and K3 ~40%, but K5a-C only
-// ~19%: rebuilding ten slope vectors per cell, not memory, bounds it, so
-// split12 is the faster pair on this card despite moving more bytes.
+// f32), 0.44 ms (f32c), 0.84 ms (f64); recompute 0.25 / 0.27 / 0.50 ms;
+// K5b 0.108 / 0.130 / 0.216 ms.  These are lower bounds derived from the
+// plane counts, not measurements.  Measured on one H100 80GB HBM3 at a
+// 700 W power limit (PERF.md), the predictors reach ~60% of that bandwidth
+// and K3 ~40%, but K5a-C only ~19%: rebuilding ten slope vectors per cell,
+// not memory, bounds it, so split12 is the faster pair on this card despite
+// moving more bytes.  K5b, with five predictor evaluations and four MUSCL
+// HLLC solves per cell, is bound by its arithmetic even more.
 //
 // Design, kept simple (as K1, stencil.cu): one thread per cell on 32x8
 // blocks, neighbours read through L1/L2, every face solved by both of its
 // cells (bit-identical under --fmad=false), dt read on the device through a
-// pointer.  Shared-memory tiles, single-solve faces and fusing the predictor
-// into the corrector are later work.
+// pointer.  K5b is the corrector template with a third source of its
+// inputs, so it shares every line of arithmetic with K2 and K5a-C and is
+// bit-equal to the split chains.  Shared-memory tiles (each cell's
+// predictor run once per block, not five times) and single-solve faces
+// are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,46 +98,15 @@ __global__ void __launch_bounds__(BX * BY)
   if (r >= rows || c >= cols) return;
   const int64_t plane = int64_t(rows) * cols;
   const int64_t i = int64_t(r) * cols + c;
-  const T zc = z[i], zbc = zb[i], qxc = qx[i], qyc = qy[i];
-  const T hc = zc - zbc;
   const Quad<T> zero{T(0), T(0), T(0), T(0)};
-  Quad<T> base{zc, hc, qxc, qyc};
+  Quad<T> base{z[i], z[i] - zb[i], qx[i], qy[i]};
   Quad<T> sx_out = zero, sy_out = zero;
 
   const bool ring = (r == 0) || (r == rows - 1) || (c == 0) ||
                     (c == cols - 1);
   if (!ring) {
-    const bool first_order = cell_first_order(z, zmax, zb, i, cols);
-    const Quad<T> sx = cell_slope(z, zb, qx, qy, i, 1, vs);
-    const Quad<T> sy = cell_slope(z, zb, qx, qy, i, cols, vs);
-    const Quad<T> ex_n0 = extrap(base, sy, T(0.5));
-    const Quad<T> ex_e0 = extrap(base, sx, T(0.5));
-    const Quad<T> ex_s0 = extrap(base, sy, T(-0.5));
-    const Quad<T> ex_w0 = extrap(base, sx, T(-0.5));
-    const Flux3<T> fn = flux_y(ex_n0, vs);
-    const Flux3<T> fe = flux_x(ex_e0, vs);
-    const Flux3<T> fs = flux_y(ex_s0, vs);
-    const Flux3<T> fw = flux_x(ex_w0, vs);
-
-    const T src_x = T(-GRAVITY * 0.5) * (ex_e0.z + ex_w0.z) *
-                    ((ex_e0.z - ex_e0.h) - (ex_w0.z - ex_w0.h)) * inv_dx;
-    const T src_y = T(-GRAVITY * 0.5) * (ex_n0.z + ex_s0.z) *
-                    ((ex_n0.z - ex_n0.h) - (ex_s0.z - ex_s0.h)) * inv_dy;
-    const T d_z =
-        round_small((fe.m - fw.m) * inv_dx + (fn.m - fs.m) * inv_dy, vs);
-    const T d_qx = round_small(
-        (fe.x - fw.x) * inv_dx + (fn.x - fs.x) * inv_dy - src_x, vs);
-    const T d_qy = round_small(
-        (fe.y - fw.y) * inv_dx + (fn.y - fs.y) * inv_dy - src_y, vs);
-
-    if (!first_order) {
-      const T half_dt = T(0.5) * *dt_ptr;
-      const T z_half = zc - half_dt * d_z;
-      base = Quad<T>{z_half, z_half - zbc, qxc - half_dt * d_qx,
-                     qyc - half_dt * d_qy};
-      sx_out = sx;
-      sy_out = sy;
-    }
+    predict_cell(z, zmax, qx, qy, zb, i, cols, T(0.5) * *dt_ptr, inv_dx,
+                 inv_dy, vs, base, sx_out, sy_out);
   }
   store_quad(pred, plane, i, base);
   if (STORE_SLOPES) {
@@ -133,16 +115,23 @@ __global__ void __launch_bounds__(BX * BY)
   }
 }
 
+// Where the corrector finds the predicted base planes and the slopes:
+// STORED (K3) loads all 12 predictor planes; RECOMPUTE (K5a-C) loads the 4
+// base planes and rebuilds the slopes; FUSED (K5b) rebuilds both, running
+// the predictor of each of its five cells inline, and reads no predictor
+// plane.
+enum CorrectMode { STORED = 0, RECOMPUTE = 1, FUSED = 2 };
+
 // Cell i's limited slope along the axis whose neighbours lie ``stride``
 // apart (1: sx, cols: sy), as the predictor stored it: zero on a
-// first-order cell.  RECOMPUTE rebuilds it from the state.
-template <typename T, bool RECOMPUTE>
+// first-order cell.  REBUILD rebuilds it from the state.
+template <typename T, bool REBUILD>
 __device__ __forceinline__ Quad<T> stored_slope(
     const T* __restrict__ z, const T* __restrict__ zmax,
     const T* __restrict__ qx, const T* __restrict__ qy,
     const T* __restrict__ zb, const T* __restrict__ pred, int64_t plane,
     int64_t i, int cols, int64_t stride, T vs) {
-  if (RECOMPUTE) {
+  if (REBUILD) {
     if (swe::cell_first_order(z, zmax, zb, i, cols)) {
       return Quad<T>{T(0), T(0), T(0), T(0)};
     }
@@ -151,7 +140,7 @@ __device__ __forceinline__ Quad<T> stored_slope(
   return load_quad(pred + (stride == 1 ? 4 : 8) * plane, plane, i);
 }
 
-template <typename T, bool COMP, bool RECOMPUTE>
+template <typename T, bool COMP, int MODE>
 __global__ void __launch_bounds__(BX * BY)
     muscl_correct_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
@@ -162,7 +151,7 @@ __global__ void __launch_bounds__(BX * BY)
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
                          int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
-                         bool friction) {
+                         bool friction, bool simplified) {
   using namespace swe;
   const int c = blockIdx.x * BX + threadIdx.x;
   const int r = blockIdx.y * BY + threadIdx.y;
@@ -187,28 +176,48 @@ __global__ void __launch_bounds__(BX * BY)
       const T dt = *dt_ptr;
       const int64_t ie = i + 1, iw = i - 1, in = i + cols, is = i - cols;
 
-      // Own faces, and the facing face of each neighbour.
+      // The base state and slopes of the cell and of its four neighbours.
       const int64_t ny = cols;
-#define SLOPE(cell, stride)                                                 \
-  stored_slope<T, RECOMPUTE>(z, zmax, qx, qy, zb, pred, plane, cell, cols, \
-                             stride, vs)
-      const Quad<T> sx = SLOPE(i, 1), sy = SLOPE(i, ny);
-      const Quad<T> sx_e = SLOPE(ie, 1), sx_w = SLOPE(iw, 1);
-      const Quad<T> sy_n = SLOPE(in, ny), sy_s = SLOPE(is, ny);
+      Quad<T> base, base_e, base_w, base_n, base_s;
+      Quad<T> sx, sy, sx_e, sx_w, sy_n, sy_s;
+      if constexpr (MODE == FUSED) {
+        const T half_dt = T(0.5) * dt;
+        Quad<T> unused;
+#define PREDICT(cell, b, s_x, s_y) \
+  predict_cell(z, zmax, qx, qy, zb, cell, cols, half_dt, inv_dx, inv_dy, vs, \
+               b, s_x, s_y)
+        PREDICT(i, base, sx, sy);
+        PREDICT(ie, base_e, sx_e, unused);
+        PREDICT(iw, base_w, sx_w, unused);
+        PREDICT(in, base_n, unused, sy_n);
+        PREDICT(is, base_s, unused, sy_s);
+#undef PREDICT
+      } else {
+#define SLOPE(cell, stride)                                              \
+  stored_slope<T, MODE == RECOMPUTE>(z, zmax, qx, qy, zb, pred, plane, cell, \
+                                     cols, stride, vs)
+        sx = SLOPE(i, 1);
+        sy = SLOPE(i, ny);
+        sx_e = SLOPE(ie, 1);
+        sx_w = SLOPE(iw, 1);
+        sy_n = SLOPE(in, ny);
+        sy_s = SLOPE(is, ny);
 #undef SLOPE
-      const Quad<T> base = load_quad(pred, plane, i);
+        base = load_quad(pred, plane, i);
+        base_e = load_quad(pred, plane, ie);
+        base_w = load_quad(pred, plane, iw);
+        base_n = load_quad(pred, plane, in);
+        base_s = load_quad(pred, plane, is);
+      }
+      // Own faces, and the facing face of each neighbour.
       const Quad<T> ex_n = extrap(base, sy, T(0.5));
       const Quad<T> ex_e = extrap(base, sx, T(0.5));
       const Quad<T> ex_s = extrap(base, sy, T(-0.5));
       const Quad<T> ex_w = extrap(base, sx, T(-0.5));
-      const Quad<T> w_of_e = extrap(load_quad(pred, plane, ie), sx_e,
-                                    T(-0.5));
-      const Quad<T> e_of_w = extrap(load_quad(pred, plane, iw), sx_w,
-                                    T(0.5));
-      const Quad<T> s_of_n = extrap(load_quad(pred, plane, in), sy_n,
-                                    T(-0.5));
-      const Quad<T> n_of_s = extrap(load_quad(pred, plane, is), sy_s,
-                                    T(0.5));
+      const Quad<T> w_of_e = extrap(base_e, sx_e, T(-0.5));
+      const Quad<T> e_of_w = extrap(base_w, sx_w, T(0.5));
+      const Quad<T> s_of_n = extrap(base_n, sy_n, T(-0.5));
+      const Quad<T> n_of_s = extrap(base_s, sy_s, T(0.5));
 
       const T qx_e = qx[ie], qx_w = qx[iw], qx_n = qx[in], qx_s = qx[is];
       const T qy_e = qy[ie], qy_w = qy[iw], qy_n = qy[in], qy_s = qy[is];
@@ -295,7 +304,7 @@ __global__ void __launch_bounds__(BX * BY)
     qx_out[i] = qx_o;
     qy_out[i] = qy_o;
     if (COMP) comp_out[i] = comp_o;
-    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false);
+    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified);
   }
   block_max_store<T, BX * BY>(spd, speeds);
 }
@@ -322,18 +331,44 @@ int predict(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COMP, bool RECOMPUTE>
+template <typename T, bool COMP, int MODE>
 int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
             const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
             T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
             int rows, int cols, double inv_dx, double inv_dy, double vs,
-            double qs, int friction, void* stream) {
-  muscl_correct_kernel<T, COMP, RECOMPUTE>
+            double qs, int friction, int simplified, void* stream) {
+  muscl_correct_kernel<T, COMP, MODE>
       <<<grid_of(rows, cols), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
           z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
           comp_out, speeds, dt, rows, cols, T(inv_dx), T(inv_dy), T(vs),
-          T(qs), friction != 0);
+          T(qs), friction != 0, simplified != 0);
   return (int)cudaGetLastError();
+}
+
+// The corrector instantiation for ``mode`` (a CorrectMode); -1 for an
+// unknown mode (cudaErrorInvalidValue is 1, so the wrapper raises).
+template <typename T, bool COMP>
+int correct_mode(const T* z, const T* zmax, const T* qx, const T* qy,
+                 const T* zb, const T* n, const T* pred, const T* comp,
+                 T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
+                 T* speeds, const T* dt, int rows, int cols, double inv_dx,
+                 double inv_dy, double vs, double qs, int friction, int mode,
+                 int simplified, void* stream) {
+#define MUSCL_CORRECT(MODE)                                                  \
+  return correct<T, COMP, MODE>(z, zmax, qx, qy, zb, n, pred, comp, z_out,   \
+                                zmax_out, qx_out, qy_out, comp_out, speeds,  \
+                                dt, rows, cols, inv_dx, inv_dy, vs, qs,      \
+                                friction, simplified, stream)
+  switch (mode) {
+    case STORED:
+      MUSCL_CORRECT(STORED);
+    case RECOMPUTE:
+      MUSCL_CORRECT(RECOMPUTE);
+    case FUSED:
+      MUSCL_CORRECT(FUSED);
+  }
+#undef MUSCL_CORRECT
+  return -1;
 }
 
 }  // namespace
@@ -365,29 +400,28 @@ int muscl_predict_f64(const double* z, const double* zmax, const double* qx,
                          cols, inv_dx, inv_dy, vs, stream);
 }
 
-// recompute != 0: pred holds the 4 base planes and the corrector rebuilds
-// the slopes; otherwise all 12 planes.  comp == nullptr selects the
-// uncompensated instantiation.
+// mode (a CorrectMode): STORED, pred holds all 12 predictor planes;
+// RECOMPUTE, the 4 base planes and the corrector rebuilds the slopes;
+// FUSED, pred is unused (may be null) and the kernel runs the whole step.
+// comp == nullptr selects the uncompensated instantiation.
 int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, const float* n,
                       const float* pred, const float* comp, float* z_out,
                       float* zmax_out, float* qx_out, float* qy_out,
                       float* comp_out, float* speeds, const float* dt,
                       int rows, int cols, double inv_dx, double inv_dy,
-                      double vs, double qs, int friction, int recompute,
-                      void* stream) {
-#define MUSCL_CORRECT_F32(COMP, RECOMPUTE)                                    \
-  return correct<float, COMP, RECOMPUTE>(                                     \
-      z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,    \
-      comp_out, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,     \
-      stream)
+                      double vs, double qs, int friction, int mode,
+                      int simplified, void* stream) {
   if (comp != nullptr) {
-    if (recompute) MUSCL_CORRECT_F32(true, true);
-    MUSCL_CORRECT_F32(true, false);
+    return correct_mode<float, true>(
+        z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
+        comp_out, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,
+        mode, simplified, stream);
   }
-  if (recompute) MUSCL_CORRECT_F32(false, true);
-  MUSCL_CORRECT_F32(false, false);
-#undef MUSCL_CORRECT_F32
+  return correct_mode<float, false>(
+      z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
+      simplified, stream);
 }
 
 int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
@@ -396,17 +430,11 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
                       double* qx_out, double* qy_out, double* speeds,
                       const double* dt, int rows, int cols, double inv_dx,
                       double inv_dy, double vs, double qs, int friction,
-                      int recompute, void* stream) {
-  if (recompute) {
-    return correct<double, false, true>(
-        z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out,
-        qy_out, nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs,
-        friction, stream);
-  }
-  return correct<double, false, false>(
+                      int mode, int simplified, void* stream) {
+  return correct_mode<double, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,
-      stream);
+      nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
+      simplified, stream);
 }
 
 }  // extern "C"

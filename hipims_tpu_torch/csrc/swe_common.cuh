@@ -28,6 +28,7 @@ constexpr double GRAVITY = 9.81;
 constexpr double NODATA = -9999.0;
 constexpr double STOP_FLOW_EPS = 1e-6;
 constexpr double STOP_FLOW_REL = 1e-3;
+constexpr double FROUDE_LIMIT = 0.8;
 
 // NaN-propagating min/max, as torch.maximum / torch.minimum.
 template <typename T>

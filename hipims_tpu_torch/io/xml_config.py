@@ -7,12 +7,13 @@ CBoundaryUniform.cpp:59-62) the same way as hipims_tpu/io/xml_config.py,
 so one model file runs in both packages.  ``<domainEdge>`` is honoured.
 
 Not ported yet (each raises ValueError naming ROADMAP.md, queue 1):
-multi-domain stitching, cell and gridded timeseries boundaries and gauge
+multi-domain stitching, gridded timeseries boundaries and gauge
 time-series targets.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import logging
 import xml.etree.ElementTree as ET
@@ -22,6 +23,7 @@ from typing import List
 import numpy as np
 
 from ..domain import Domain
+from ..models import get_scheme
 from ..ops import boundaries as B
 from ..runtime.output import RasterOutputWriter
 from ..runtime.simulation import Simulation, SimulationConfig
@@ -46,6 +48,18 @@ _KNOWN_SOURCE_VALUES = {"structure", "dem", "depth", "fsl", "velocityx",
                         "velocityy", "dischargex", "dischargey",
                         "manningcoefficient", "disabled"}
 _NOT_PORTED = "is not ported to hipims_tpu_torch yet (ROADMAP.md, queue 1)"
+# Cell-boundary depthValue / dischargeValue attributes; an unknown value
+# reads as "fsl" / "total", as in the JAX loader.
+_DEPTH_MODES = {"fsl": B.DEPTH_IS_FSL, "depth": B.DEPTH_IS_DEPTH,
+                "ignore": B.DEPTH_IGNORE, "disabled": B.DEPTH_IGNORE,
+                "critical": B.DEPTH_IS_CRITICAL}
+_DISCHARGE_MODES = {"total": B.DISCHARGE_IS_DISCHARGE,
+                    "cell": B.DISCHARGE_IS_DISCHARGE,
+                    "velocity": B.DISCHARGE_IS_VELOCITY,
+                    "ignore": B.DISCHARGE_IGNORE,
+                    "disabled": B.DISCHARGE_IGNORE,
+                    "volume": B.DISCHARGE_IS_VOLUME,
+                    "surging": B.DISCHARGE_IS_VOLUME}
 
 
 @dataclasses.dataclass
@@ -216,13 +230,28 @@ def load_config(path) -> LoadedModel:
     bounds: List = []
     if blk.bc_el is not None:
         bc_dir = base / blk.bc_el.get("sourceDir", "")
+        shared_map = blk.bc_el.get("mapFile")
         for edge_el in blk.bc_el.findall("domainEdge"):
             edge = edge_el.get("edge", "").strip().lower()
             if edge in domain.edge_treatment:
                 domain.edge_treatment[edge] = edge_el.get(
                     "treatment", "closed").strip().lower()
         for ts in blk.bc_el.findall("timeseries"):
-            bounds.append(_parse_timeseries(ts, bc_dir))
+            bounds.append(_parse_timeseries(ts, bc_dir, shared_map, domain))
+
+    # Cell-boundary cells inside the scheme's static ring are never forced
+    # (ops/boundaries.py interior_force_mask): say so at load time.
+    ring = get_scheme(cfg.scheme).radius
+    for b in bounds:
+        if isinstance(b, B.CellBoundary):
+            r, c = np.asarray(b.rows), np.asarray(b.cols)
+            bad = ((r < ring) | (r >= domain.rows - ring)
+                   | (c < ring) | (c >= domain.cols - ring))
+            if bad.any():
+                log.warning("%s: %d cell-boundary cell(s) fall inside "
+                            "the %d-cell static edge ring and will "
+                            "receive no forcing; move them inward",
+                            path.name, int(bad.sum()), ring)
 
     return LoadedModel(name=name, description=desc, domain=domain,
                        config=cfg, boundaries=bounds,
@@ -276,10 +305,11 @@ def _parse_domain_block(el, base: Path, path):
                            bc_el=el.find("boundaryConditions"))
 
 
-def _parse_timeseries(ts, bc_dir: Path):
+def _parse_timeseries(ts, bc_dir: Path, shared_map, domain: Domain):
     kind = (ts.get("type") or "").strip().lower()
     value = (ts.get("value") or "").strip().lower()
     source = ts.get("source") or ""
+    name = ts.get("name") or source
     if kind in ("atmospheric", "uniform"):
         series = read_timeseries_csv(bc_dir / source, n_cols=2)
         return B.UniformBoundary(
@@ -288,14 +318,62 @@ def _parse_timeseries(ts, bc_dir: Path):
             length=series_length(series),
             is_loss=(value in ("loss-rate", "loss")))
     if kind in ("cell", "flow", "flowconditions"):
-        raise ValueError(f"cell timeseries boundary "
-                         f"'{ts.get('name') or source}' (CellBoundary) "
-                         f"{_NOT_PORTED}")
+        series = read_timeseries_csv(bc_dir / source, n_cols=4)
+        map_file = ts.get("mapFile") or shared_map
+        if map_file is None:
+            raise ValueError(f"cell boundary '{name}' needs a map file")
+        rows, cols = _world_to_cells(_read_cell_map(bc_dir / map_file, name),
+                                     domain)
+        depth_val = (ts.get("depthValue") or "fsl").strip().lower()
+        dis_val = (ts.get("dischargeValue") or "total").strip().lower()
+        series = series.copy()
+        if dis_val == "total" and rows:
+            # Host-side division, reference CBoundaryCell.cpp:345-355.
+            series[:, 2] /= len(rows)
+            series[:, 3] /= len(rows)
+        return B.CellBoundary(
+            rows=np.asarray(rows, np.int32), cols=np.asarray(cols, np.int32),
+            series=series, interval=series_interval(series),
+            length=series_length(series),
+            depth_mode=_DEPTH_MODES.get(depth_val, B.DEPTH_IS_FSL),
+            discharge_mode=_DISCHARGE_MODES.get(dis_val,
+                                                B.DISCHARGE_IS_DISCHARGE))
     if kind in ("gridded", "spatially-varying"):
-        raise ValueError(f"gridded timeseries boundary "
-                         f"'{ts.get('name') or source}' (GriddedBoundary) "
-                         f"{_NOT_PORTED}")
+        raise ValueError(f"gridded timeseries boundary '{name}' "
+                         f"(GriddedBoundary) {_NOT_PORTED}")
     raise ValueError(f"unknown timeseries type '{kind}'")
+
+
+def _read_cell_map(path: Path, name: str):
+    """(x, y[, name]) world-coordinate rows for one named boundary
+    (reference: CBoundaryCell::importMap, CBoundaryCell.cpp:232-296)."""
+    cells = []
+    with open(path, newline="") as f:
+        for rec in csv.reader(f):
+            rec = [c.strip() for c in rec if c.strip() != ""]
+            if len(rec) < 2:
+                continue
+            try:
+                x, y = float(rec[0]), float(rec[1])
+            except ValueError:
+                continue
+            if len(rec) >= 3 and rec[2] != name:
+                continue
+            cells.append((x, y))
+    return cells
+
+
+def _world_to_cells(cells, domain: Domain):
+    """Grid (row, col) of each world point; points off the grid are
+    dropped."""
+    rows, cols = [], []
+    for x, y in cells:
+        ci = int((x - domain.xll) / domain.dx)
+        ri = int((y - domain.yll) / domain.dy)
+        if 0 <= ri < domain.rows and 0 <= ci < domain.cols:
+            rows.append(ri)
+            cols.append(ci)
+    return rows, cols
 
 
 class _Grid:

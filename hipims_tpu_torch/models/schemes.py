@@ -1,8 +1,8 @@
 """Scheme definitions.  Names match the reference's configuration
 vocabulary (reference: src/Schemes/CScheme.cpp:141-175).
 
-First-order Godunov and MUSCL-Hancock are ported; the partial-inertial
-scheme is listed in ROADMAP.md (queue 1) and raises until it lands.
+All three of the reference's schemes are ported: first-order Godunov,
+MUSCL-Hancock and partial-inertial.
 """
 
 from __future__ import annotations
@@ -23,17 +23,13 @@ SCHEMES = {
     "godunov": Scheme("godunov", simplified_speed=False, radius=1),
     "muscl-hancock": Scheme("muscl-hancock", simplified_speed=False,
                             radius=2),
+    "inertial": Scheme("inertial", simplified_speed=True, radius=1),
 }
-NOT_PORTED = ("inertial",)
 
 
 def get_scheme(name: str) -> Scheme:
     key = name.strip().lower().replace("_", "-")
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"scheme '{key}' is not ported to hipims_tpu_torch yet; see "
-            "ROADMAP.md (queue 1)")
     if key not in SCHEMES:
         raise ValueError(f"Unknown scheme '{name}'; expected one of "
-                         f"{sorted(SCHEMES) + list(NOT_PORTED)}")
+                         f"{sorted(SCHEMES)}")
     return SCHEMES[key]

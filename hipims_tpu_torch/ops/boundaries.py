@@ -1,17 +1,20 @@
-"""Boundary-condition operators: uniform (atmospheric) rain and loss.
+"""Boundary-condition operators: uniform (atmospheric) rain and loss, and
+per-cell timeseries (a breach, an inflow hydrograph, a fixed level).
 
-Mirrors bdy_Uniform (reference: src/Boundaries/CLBoundaries.clc) and its
-host-side preparation (CBoundaryUniform.cpp).  Boundaries apply at the top
-of every step on the current state, as in the reference's
+Mirror bdy_Uniform and bdy_Cell (reference: src/Boundaries/
+CLBoundaries.clc:23-166) and their host-side preparation
+(CBoundaryUniform.cpp, CBoundaryCell.cpp:298-460).  Boundaries apply at
+the top of every step on the current state, as in the reference's
 scheduleIteration ordering (src/Schemes/CSchemeGodunov.cpp:1617-1666).
 Uniform sources are gated by the hydrological accumulator
-(TIMESTEP_HYDROLOGICAL) and use nearest-record lookup in time.
+(TIMESTEP_HYDROLOGICAL) and use nearest-record lookup in time; cell
+boundaries apply every step with linear interpolation in time.
 
 ``apply`` takes ``mask``: a boolean tensor that is True exactly where
 forcing is allowed, the grid minus the scheme's static ring
 (``interior_force_mask``), built once per simulation.
 
-Per-cell and gridded boundaries are not ported yet (ROADMAP.md, queue 1).
+Gridded (radar) boundaries are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -88,6 +91,119 @@ class UniformBoundary:
         z_new = torch.where(apply_mask, z_new, zc)
         comp_new = torch.where(apply_mask, comp_new, comp)
         return state._replace(z=z_new), comp_new
+
+
+# Depth-definition modes (reference: src/Boundaries/CLBoundaries.clh:35-38).
+DEPTH_IGNORE = 0
+DEPTH_IS_FSL = 1
+DEPTH_IS_DEPTH = 2
+DEPTH_IS_CRITICAL = 3
+
+# Discharge-definition modes (reference: CLBoundaries.clh:40-43).
+DISCHARGE_IGNORE = 0
+DISCHARGE_IS_DISCHARGE = 1
+DISCHARGE_IS_VELOCITY = 2
+DISCHARGE_IS_VOLUME = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class CellBoundary:
+    """Per-cell timeseries boundary (depth / FSL / discharge / velocity /
+    volume surge), linearly interpolated in time.
+
+    ``series`` columns are (time, depth-or-level, discharge-x,
+    discharge-y); total-discharge series are pre-divided by the cell count
+    by the loader, as the reference does host-side
+    (src/Boundaries/CBoundaryCell.cpp:345-355).  ``rows``, ``cols`` and
+    ``series`` are host arrays until ``to`` puts them on the state's
+    device (``Simulation`` does so once)."""
+
+    rows: object                    # (K,) int cell row indices
+    cols: object                    # (K,) int cell col indices
+    series: object                  # (T, 4)
+    interval: float
+    length: float
+    depth_mode: int
+    discharge_mode: int
+
+    def to(self, device, dtype) -> "CellBoundary":
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+        return dataclasses.replace(
+            self, rows=idx(self.rows), cols=idx(self.cols),
+            series=torch.as_tensor(np.asarray(self.series),
+                                   device=device).to(dtype))
+
+    def apply(self, state: FlowState, static: DomainStatic, t, dt, t_hydro,
+              params: SchemeParams, mask, comp=None):
+        series = self.series
+        last = series.shape[0] - 1
+        base = torch.clamp((t / self.interval).to(torch.int64), 0, last)
+        rows = series.index_select(0, torch.stack([base, torch.clamp(
+            base + 1, 0, last)]))
+        frac = torch.remainder(t, self.interval) / self.interval
+        ts = rows[0] + (rows[1] - rows[0]) * frac
+        ts_depth, ts_qx, ts_qy = ts[1], ts[2], ts[3]
+
+        live = (dt > 0.0) & (t < self.length)
+        rr, cc = self.rows, self.cols
+        zb_c = static.zb[rr, cc]
+        z_c = state.z[rr, cc]
+        qx_c = state.qx[rr, cc]
+        qy_c = state.qy[rr, cc]
+
+        if self.depth_mode == DEPTH_IS_DEPTH:
+            z_new = zb_c + ts_depth
+        elif self.depth_mode == DEPTH_IS_FSL:
+            # Timeseries levels are absolute; device elevations may ride a
+            # shifted datum (SchemeParams.datum).
+            z_new = torch.maximum(zb_c, ts_depth - params.datum)
+        else:
+            # Free surface: build up depth from the discharge being pushed
+            # in, with a critical-depth floor (reference CLBoundaries.clc:
+            # 69-101).
+            if self.discharge_mode == DISCHARGE_IS_VOLUME:
+                d_depth = torch.abs(ts_qx) * dt / (params.dx * params.dy)
+                d_crit = torch.zeros_like(d_depth)
+                inject = torch.ones_like(live)
+            else:
+                d_depth = (torch.abs(ts_qx) * dt / params.dy
+                           + torch.abs(ts_qy) * dt / params.dx)
+                # No cbrt in PyTorch: the arguments are >= 0, where
+                # x ** (1/3) is the cube root to a few ulps.
+                d_crit = torch.maximum(
+                    torch.pow(ts_qx * ts_qx / C.GRAVITY, 1.0 / 3.0),
+                    torch.pow(ts_qy * ts_qy / C.GRAVITY, 1.0 / 3.0))
+                inject = ((torch.abs(ts_qx) > C.VERY_SMALL)
+                          | (torch.abs(ts_qy) > C.VERY_SMALL))
+            z_new = torch.where(
+                inject, torch.maximum(zb_c + d_crit, z_c + d_depth), z_c)
+
+        if self.discharge_mode == DISCHARGE_IS_DISCHARGE:
+            qx_new = ts_qx.expand_as(z_new)
+            qy_new = ts_qy.expand_as(z_new)
+        elif self.discharge_mode == DISCHARGE_IS_VELOCITY:
+            qx_new = ts_qx * (z_new - zb_c)
+            qy_new = ts_qy * (z_new - zb_c)
+        else:
+            qx_new, qy_new = qx_c, qy_c
+
+        # Cells the mask forbids (the static ring) keep their values: the
+        # same forced cell set as the JAX package's dropped scatters.
+        forced = live & mask[rr, cc]
+        new = state._replace(
+            z=state.z.index_put((rr, cc), torch.where(forced, z_new, z_c)),
+            qx=state.qx.index_put((rr, cc),
+                                  torch.where(forced, qx_new, qx_c)),
+            qy=state.qy.index_put((rr, cc),
+                                  torch.where(forced, qy_new, qy_c)))
+        if comp is None:
+            return new
+        # The boundary overwrites z outright, so the running-sum residue
+        # at forced cells is reset while the forcing is live.
+        comp_c = comp[rr, cc]
+        return new, comp.index_put((rr, cc),
+                                   torch.where(forced, 0.0, comp_c))
 
 
 def apply_boundaries(boundaries, state: FlowState, static: DomainStatic,

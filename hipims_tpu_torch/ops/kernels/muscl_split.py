@@ -8,12 +8,16 @@ launch count:
 * ``muscl_predict``            K2, variant "split12": base + slopes, 12 planes;
 * ``muscl_predict_base``       K5a-P, variant "recompute": the 4 base planes;
 * ``muscl_correct``            K3: corrector on the 12 planes;
-* ``muscl_correct_recompute``  K5a-C: corrector that rebuilds the slopes.
+* ``muscl_correct_recompute``  K5a-C: corrector that rebuilds the slopes;
+* ``muscl_fused``              K5b: the whole step in one kernel, which
+  rebuilds the slopes and the half-step base state of five cells per cell
+  (``stencil_step("muscl-hancock")``; no ``Simulation`` path takes it, as
+  in the JAX package).
 
 On CPU tensors a wrapper runs its plain PyTorch version
-(``muscl_predict_plain`` / ``muscl_correct_plain``); on CUDA tensors it
-launches its kernel or raises.  There is no fallback from the card to the
-plain version.
+(``muscl_predict_plain`` / ``muscl_correct_plain`` / ``muscl_step_plain``);
+on CUDA tensors it launches its kernel or raises.  There is no fallback
+from the card to the plain version.
 
 The predictor's planes form one (12 or 4, rows, cols) tensor: base
 (z, h, qx, qy), then sx(z, h, qx, qy) and sy(z, h, qx, qy).  Cells of the
@@ -32,21 +36,24 @@ from ...state import FlowState
 from ..godunov import SchemeParams
 from ..muscl import (FaceExtrap, faces_from_base_slopes, interior_slopes,
                      muscl_corrector_full, muscl_predictor_base_slopes,
-                     with_ring)
+                     muscl_step, with_ring)
 from ..timestep import max_wave_speed
 from . import build
-from .stencil import check_planes
+from .common import check_planes, on_card, plain_step_result, raise_on
 
 N_PRED = 12        # base(4) + sx(4) + sy(4)
 RING = 2           # MUSCL static ring width
 VARIANTS = ("split12", "recompute")
+# The corrector kernel's source of the predicted base planes and slopes
+# (csrc/muscl_split.cu CorrectMode).
+STORED, RECOMPUTE, FUSED = 0, 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
-_CORRECT_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
-_CORRECT_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _I, _P]
+_CORRECT_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _I, _P]
 
 
 @functools.cache
@@ -119,22 +126,18 @@ def muscl_correct_plain(state: FlowState, static, pred, dt,
     return new, speed, with_ring(comp, out[4][1:-1, 1:-1], RING)
 
 
+def muscl_step_plain(state: FlowState, static, dt, params: SchemeParams,
+                     comp=None, simplified_speed=False):
+    """The plain version of K5b, on any device: the whole-grid MUSCL-
+    Hancock step, then the max wave speed over the new state."""
+    return plain_step_result(muscl_step(state, static, dt, params,
+                                        comp=comp),
+                             comp, static, params, simplified_speed)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches.
 # ---------------------------------------------------------------------------
-
-def _on_card(who, state):
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    dev = state.z.device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"{who} runs on CUDA or CPU tensors, not {dev}")
-    return dev.type == "cuda"
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
 
 def _predict_cuda(state, static, dt, params, store_slopes):
     who = "muscl_predict" if store_slopes else "muscl_predict_base"
@@ -149,31 +152,42 @@ def _predict_cuda(state, static, dt, params, store_slopes):
                  pred.data_ptr(), int(store_slopes), dt.data_ptr(), rows,
                  cols, 1.0 / params.dx, 1.0 / params.dy, params.very_small,
                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, who)
+    raise_on(err, who)
     return pred
 
 
-def _correct_cuda(state, static, pred, dt, params, comp, recompute):
-    who = "muscl_correct_recompute" if recompute else "muscl_correct"
+_CORRECTORS = {STORED: "muscl_correct", RECOMPUTE: "muscl_correct_recompute",
+               FUSED: "muscl_fused"}
+
+
+def _correct_cuda(state, static, pred, dt, params, comp, mode,
+                  simplified_speed=False):
+    """Launch the corrector kernel: K3 (``mode`` STORED, 12 predictor
+    planes), K5a-C (RECOMPUTE, 4 base planes) or K5b (FUSED, ``pred`` is
+    None: the kernel also rebuilds the base planes)."""
+    who = _CORRECTORS[mode]
     planes = [*state, *static] + ([comp] if comp is not None else [])
     check_planes(who, planes, dt, comp)
-    want = (4 if recompute else N_PRED, *state.z.shape)
-    if (tuple(pred.shape) != want or pred.dtype != state.z.dtype
-            or pred.device != state.z.device or not pred.is_contiguous()):
-        raise ValueError(f"{who}: the predictor planes must be one "
-                         f"contiguous {want} tensor beside the state")
+    if mode != FUSED:
+        want = (4 if mode == RECOMPUTE else N_PRED, *state.z.shape)
+        if (tuple(pred.shape) != want or pred.dtype != state.z.dtype
+                or pred.device != state.z.device
+                or not pred.is_contiguous()):
+            raise ValueError(f"{who}: the predictor planes must be one "
+                             f"contiguous {want} tensor beside the state")
     rows, cols = state.z.shape
     lib = _lib()
     out = [torch.empty_like(state.z) for _ in range(4)]
     comp_out = torch.empty_like(comp) if comp is not None else None
     speeds = torch.empty(lib.muscl_correct_partials(rows, cols),
                          dtype=state.z.dtype, device=state.z.device)
-    ptr = [t.data_ptr() for t in (*state, *static, pred)]
+    ptr = [t.data_ptr() for t in (*state, *static)]
+    ptr.append(pred.data_ptr() if pred is not None else None)
     optr = [t.data_ptr() for t in out]
     with torch.cuda.device(state.z.device):
         common = (rows, cols, 1.0 / params.dx, 1.0 / params.dy,
                   params.very_small, params.quite_small,
-                  int(params.friction), int(recompute),
+                  int(params.friction), mode, int(simplified_speed),
                   torch.cuda.current_stream().cuda_stream)
         if state.z.dtype == torch.float32:
             cptr = comp.data_ptr() if comp is not None else None
@@ -184,7 +198,7 @@ def _correct_cuda(state, static, pred, dt, params, comp, recompute):
         else:
             err = lib.muscl_correct_f64(*ptr, *optr, speeds.data_ptr(),
                                         dt.data_ptr(), *common)
-    _raise_on(err, who)
+    raise_on(err, who)
     new = FlowState(*out)
     if comp is None:
         return new, torch.amax(speeds)
@@ -193,7 +207,7 @@ def _correct_cuda(state, static, pred, dt, params, comp, recompute):
 
 def muscl_predict(state: FlowState, static, dt, params: SchemeParams):
     """K2: the half-step predictor's 12 planes (base + limited slopes)."""
-    if not _on_card("muscl_predict", state):
+    if not on_card("muscl_predict", state):
         return muscl_predict_plain(state, static, dt, params)
     pred = _predict_cuda(state, static, dt, params, True)
     muscl_predict.launches += 1
@@ -202,7 +216,7 @@ def muscl_predict(state: FlowState, static, dt, params: SchemeParams):
 
 def muscl_predict_base(state: FlowState, static, dt, params: SchemeParams):
     """K5a-P: the half-step predictor's 4 base planes."""
-    if not _on_card("muscl_predict_base", state):
+    if not on_card("muscl_predict_base", state):
         return muscl_predict_plain(state, static, dt, params,
                                    store_slopes=False)
     pred = _predict_cuda(state, static, dt, params, False)
@@ -214,10 +228,10 @@ def muscl_correct(state: FlowState, static, pred, dt, params: SchemeParams,
                   comp=None):
     """K3: the corrector on K2's 12 planes, the two-cell static ring and
     the CFL max.  Returns as ``muscl_correct_plain``."""
-    if not _on_card("muscl_correct", state):
+    if not on_card("muscl_correct", state):
         return muscl_correct_plain(state, static, pred, dt, params,
                                    comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp, False)
+    out = _correct_cuda(state, static, pred, dt, params, comp, STORED)
     muscl_correct.launches += 1
     return out
 
@@ -226,18 +240,32 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
                             params: SchemeParams, comp=None):
     """K5a-C: the corrector on K5a-P's 4 base planes, rebuilding the
     limited slopes from the state.  Returns as ``muscl_correct_plain``."""
-    if not _on_card("muscl_correct_recompute", state):
+    if not on_card("muscl_correct_recompute", state):
         return muscl_correct_plain(state, static, pred, dt, params,
                                    comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp, True)
+    out = _correct_cuda(state, static, pred, dt, params, comp, RECOMPUTE)
     muscl_correct_recompute.launches += 1
     return out
 
 
+def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
+                comp=None, simplified_speed=False):
+    """K5b: one whole MUSCL-Hancock step + CFL max in one launch.  Returns
+    as ``muscl_step_plain``."""
+    if not on_card("muscl_fused", state):
+        return muscl_step_plain(state, static, dt, params, comp=comp,
+                                simplified_speed=simplified_speed)
+    out = _correct_cuda(state, static, None, dt, params, comp, FUSED,
+                        simplified_speed)
+    muscl_fused.launches += 1
+    return out
+
+
 # Kernel launches since the last reset (the plain versions never count).
+# K5b is counted with the fused step kernels (stencil.KERNELS).
 KERNELS = (muscl_predict, muscl_predict_base, muscl_correct,
            muscl_correct_recompute)
-for _k in KERNELS:
+for _k in (*KERNELS, muscl_fused):
     _k.launches = 0
 
 

@@ -1,9 +1,17 @@
-"""Fused scheme step + CFL partial max: the CUDA kernel and its dispatch.
+"""Fused scheme step + CFL partial max: the CUDA kernels and their dispatch.
 
-``stencil_step`` is the port of ``stencil_step_pallas``.  On CPU tensors it
-runs the plain PyTorch version (``ops/godunov.py`` + ``max_wave_speed``);
-on CUDA tensors it launches kernel K1 (``csrc/stencil.cu``) or raises.
-There is no fallback from the card to the plain version.
+``stencil_step`` is the port of ``stencil_step_pallas``: one fused step of
+any scheme.  Each scheme has its own kernel wrapper, with its own launch
+count and its own plain PyTorch version:
+
+* ``godunov_fused``   K1 (``csrc/stencil.cu``), plain ``stencil_step_plain``;
+* ``inertial_fused``  K4 (``csrc/stencil.cu``), plain ``inertial_step_plain``;
+* ``muscl_fused``     K5b (``csrc/muscl_split.cu``, wrapper in
+  ``muscl_split.py``), plain ``muscl_step_plain``.
+
+On CPU tensors a wrapper runs its plain version; on CUDA tensors it
+launches its kernel or raises.  There is no fallback from the card to the
+plain version.
 """
 
 from __future__ import annotations
@@ -15,8 +23,10 @@ import torch
 
 from ...state import FlowState
 from ..godunov import SchemeParams, godunov_step
-from ..timestep import max_wave_speed
+from ..inertial import inertial_step
 from . import build
+from .common import check_planes, on_card, plain_step_result, raise_on
+from .muscl_split import muscl_fused, muscl_step_plain
 
 _P = ctypes.c_void_p
 _F32_ARGS = [_P] * 14 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_double] * 4 \
@@ -27,70 +37,50 @@ _F64_ARGS = [_P] * 12 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_double] * 4 \
 
 @functools.cache
 def _lib():
-    """Build (first call only) and load K1, with every C signature typed:
-    an untyped pointer would be cut to 32 bits."""
+    """Build (first call only) and load K1 and K4, with every C signature
+    typed: an untyped pointer would be cut to 32 bits."""
     lib = build.library("stencil", ["stencil.cu"], ["swe_common.cuh"])
-    lib.godunov_step_f32.argtypes = _F32_ARGS
-    lib.godunov_step_f32.restype = ctypes.c_int
-    lib.godunov_step_f64.argtypes = _F64_ARGS
-    lib.godunov_step_f64.restype = ctypes.c_int
-    lib.godunov_step_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.godunov_step_partials.restype = ctypes.c_int
+    for scheme in ("godunov", "inertial"):
+        for suffix, args in (("f32", _F32_ARGS), ("f64", _F64_ARGS)):
+            fn = getattr(lib, f"{scheme}_step_{suffix}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    lib.stencil_step_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.stencil_step_partials.restype = ctypes.c_int
     return lib
 
 
-def check_planes(who, tensors, dt, comp):
-    """Raise unless ``tensors`` are contiguous (rows, cols) planes of one
-    shape, float dtype and device, ``dt`` a 0-d tensor beside them, and
-    ``comp`` (if given) a float32 option: what the kernels take."""
-    ref = tensors[0]
-    if ref.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{who} takes float32 or float64, got {ref.dtype}")
-    if ref.dim() != 2 or min(ref.shape) < 3:
-        raise ValueError(f"{who} needs a (rows, cols) grid of at least 3x3, "
-                         f"got {tuple(ref.shape)}")
-    for t in tensors:
-        if (t.device != ref.device or t.dtype != ref.dtype
-                or t.shape != ref.shape or not t.is_contiguous()):
-            raise ValueError(f"{who}: every plane must be a contiguous "
-                             "tensor of one shape, dtype and device")
-    if dt.dim() != 0 or dt.device != ref.device or dt.dtype != ref.dtype:
-        raise ValueError(f"{who}: dt must be a 0-d tensor on the planes' "
-                         "device, in their dtype")
-    if comp is not None and ref.dtype != torch.float32:
-        raise ValueError(f"{who}: the comp plane is a float32 (compensated) "
-                         "option")
-
-
-def _launch_cuda(state, static, dt, params, comp, simplified_speed):
+def _launch_cuda(scheme, state, static, dt, params, comp, simplified_speed):
+    """Launch K1 (``scheme`` "godunov") or K4 ("inertial")."""
     planes = [*state, *static] + ([comp] if comp is not None else [])
-    check_planes("stencil_step", planes, dt, comp)
+    check_planes(f"{scheme} step", planes, dt, comp)
     rows, cols = state.z.shape
     lib = _lib()
     out = [torch.empty_like(state.z) for _ in range(4)]
     comp_out = torch.empty_like(comp) if comp is not None else None
-    speeds = torch.empty(lib.godunov_step_partials(rows, cols),
+    speeds = torch.empty(lib.stencil_step_partials(rows, cols),
                          dtype=state.z.dtype, device=state.z.device)
+    # K1 multiplies by the inverse spacings; K4 divides by the spacings,
+    # as the reference's inertial scheme does.
+    spacing = ((params.dx, params.dy) if scheme == "inertial"
+               else (1.0 / params.dx, 1.0 / params.dy))
     with torch.cuda.device(state.z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        common = (rows, cols, 1.0 / params.dx, 1.0 / params.dy,
-                  params.very_small, params.quite_small,
-                  int(params.friction), int(simplified_speed), stream)
+        common = (rows, cols, *spacing, params.very_small,
+                  params.quite_small, int(params.friction),
+                  int(simplified_speed), stream)
         ptr = [t.data_ptr() for t in planes[:6]]
         optr = [t.data_ptr() for t in out]
         if state.z.dtype == torch.float32:
             cptr = comp.data_ptr() if comp is not None else None
             coptr = comp_out.data_ptr() if comp is not None else None
-            err = lib.godunov_step_f32(*ptr, cptr, *optr, coptr,
-                                       speeds.data_ptr(), dt.data_ptr(),
-                                       *common)
+            err = getattr(lib, f"{scheme}_step_f32")(
+                *ptr, cptr, *optr, coptr, speeds.data_ptr(), dt.data_ptr(),
+                *common)
         else:
-            err = lib.godunov_step_f64(*ptr, *optr, speeds.data_ptr(),
-                                       dt.data_ptr(), *common)
-    if err != 0:
-        raise RuntimeError(f"godunov step kernel launch failed: CUDA error "
-                           f"{err}")
-    stencil_step.launches += 1
+            err = getattr(lib, f"{scheme}_step_f64")(
+                *ptr, *optr, speeds.data_ptr(), dt.data_ptr(), *common)
+    raise_on(err, f"{scheme} step")
     new = FlowState(*out)
     if comp is None:
         return new, torch.amax(speeds)
@@ -101,37 +91,66 @@ def stencil_step_plain(state: FlowState, static, dt, params: SchemeParams,
                        comp=None, simplified_speed=False):
     """The plain PyTorch version of K1, on any device: the whole-grid
     Godunov step, then the max wave speed over the new state."""
-    out = godunov_step(state, static, dt, params, comp=comp)
-    new, comp_new = (out, None) if comp is None else out
-    speed = max_wave_speed(new.z, new.zmax, new.qx, new.qy, static.zb,
-                           params.quite_small, simplified_speed)
-    if comp is None:
-        return new, speed
-    return new, speed, comp_new
+    return plain_step_result(godunov_step(state, static, dt, params,
+                                          comp=comp),
+                             comp, static, params, simplified_speed)
+
+
+def inertial_step_plain(state: FlowState, static, dt, params: SchemeParams,
+                        comp=None, simplified_speed=True):
+    """The plain PyTorch version of K4, on any device: the whole-grid
+    partial-inertial step, then the max wave speed over the new state."""
+    return plain_step_result(inertial_step(state, static, dt, params,
+                                           comp=comp),
+                             comp, static, params, simplified_speed)
+
+
+def godunov_fused(state: FlowState, static, dt, params: SchemeParams,
+                  comp=None, simplified_speed=False):
+    """K1: one first-order Godunov step + CFL max."""
+    if not on_card("godunov_fused", state):
+        return stencil_step_plain(state, static, dt, params, comp=comp,
+                                  simplified_speed=simplified_speed)
+    out = _launch_cuda("godunov", state, static, dt, params, comp,
+                       simplified_speed)
+    godunov_fused.launches += 1
+    return out
+
+
+def inertial_fused(state: FlowState, static, dt, params: SchemeParams,
+                   comp=None, simplified_speed=True):
+    """K4: one partial-inertial step + CFL max."""
+    if not on_card("inertial_fused", state):
+        return inertial_step_plain(state, static, dt, params, comp=comp,
+                                   simplified_speed=simplified_speed)
+    out = _launch_cuda("inertial", state, static, dt, params, comp,
+                       simplified_speed)
+    inertial_fused.launches += 1
+    return out
+
+
+# Kernel launches since the last reset (the plain versions never count).
+godunov_fused.launches = 0
+inertial_fused.launches = 0
+KERNELS = (godunov_fused, inertial_fused, muscl_fused)
+_BY_SCHEME = {"godunov": godunov_fused, "inertial": inertial_fused,
+              "muscl-hancock": muscl_fused}
+PLAIN = {"godunov": stencil_step_plain, "inertial": inertial_step_plain,
+         "muscl-hancock": muscl_step_plain}
 
 
 def stencil_step(scheme: str, state: FlowState, static, dt,
                  params: SchemeParams, comp=None, simplified_speed=False):
-    """One fused step + CFL reduction.
+    """One fused step + CFL reduction of ``scheme``.
 
     Returns (new_state, max_wave_speed), or (new_state, max_wave_speed,
     comp_new) when ``comp`` (the compensated-f32 residue of z) is given.
-    ``dt`` is a 0-d tensor on the state's device.  The one-cell edge ring
-    keeps its values; the max speed covers every cell of the new state.
-    CUDA tensors launch K1; CPU tensors take the plain version."""
-    if scheme != "godunov":
-        raise NotImplementedError(
-            f"stencil_step: scheme {scheme!r} is not ported yet "
-            "(ROADMAP.md, queue 2)")
-    if state.z.device.type == "cuda":
-        return _launch_cuda(state, static, dt, params, comp,
-                            simplified_speed)
-    if state.z.device.type != "cpu":
-        raise ValueError(f"stencil_step runs on CUDA or CPU tensors, not "
-                         f"{state.z.device}")
-    return stencil_step_plain(state, static, dt, params, comp=comp,
+    ``dt`` is a 0-d tensor on the state's device.  The scheme's static
+    edge ring (one cell, two for MUSCL-Hancock) keeps its values; the max
+    speed covers every cell of the new state.  CUDA tensors launch the
+    scheme's kernel (K1, K4 or K5b); CPU tensors take its plain version."""
+    if scheme not in _BY_SCHEME:
+        raise ValueError(f"stencil_step: unknown scheme {scheme!r}; "
+                         f"expected one of {sorted(_BY_SCHEME)}")
+    return _BY_SCHEME[scheme](state, static, dt, params, comp=comp,
                               simplified_speed=simplified_speed)
-
-
-# Kernel launches since the last reset (the plain version never counts).
-stencil_step.launches = 0

@@ -2,7 +2,8 @@
 
 A batch is a Python loop of K steps of on-device work: boundaries ->
 scheme step with its CFL partial max (on the card: kernel K1 for Godunov,
-the MUSCL predictor + corrector kernels for MUSCL-Hancock) -> the time
+K4 for partial-inertial, the MUSCL predictor + corrector kernels for
+MUSCL-Hancock) -> the time
 controller ``advance``.  dt and t stay on the device as 0-d tensors,
 and the reference's negative-dt suspension makes steps past the sync time
 idle, so the host reads back once per batch (t, dt, counters), like the

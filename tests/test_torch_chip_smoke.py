@@ -1,6 +1,6 @@
-"""chip_smoke.py without a card: it refuses to run, and its model writer
-plus main-path phase work on the CPU, so the script does not rot between
-runs on the card."""
+"""chip_smoke.py without a card: it refuses to run, and its model writers,
+main-path phases, launch checks and kernels record work on the CPU, so the
+script does not rot between runs on the card."""
 
 import shutil
 import subprocess
@@ -70,3 +70,94 @@ def test_api_path_on_cpu(tmp_path):
     res = chip_smoke.run_api_path(tmp_path, "cpu", 32, 48, 30.0,
                                   "recompute", mass_tol=0.05)
     assert res["steps"] > 0 and not any(res["launches"].values())
+
+
+def test_inertial_main_path_on_cpu(tmp_path):
+    """Phase 4d's model: the XML name "inertial" runs the partial-inertial
+    scheme (one-cell ring) and holds the mass balance."""
+    res = _main_path_on_cpu(tmp_path, "inertial")
+    assert "Scheme:      inertial" in res["log"]
+    assert res["expected"] == pytest.approx(
+        chip_smoke._forced_volume(32, 48, 1, 30.0))
+
+
+def test_breach_path_on_cpu(tmp_path):
+    """Phase 4e's breach through the CLI on the CPU: two output events,
+    a positive volume that does not fall, no kernel launches."""
+    res = chip_smoke.run_breach_path(tmp_path, "cpu", 64, 96, 30.0, 15.0)
+    assert res["steps"] > 0 and not any(res["launches"].values())
+    assert len(res["volumes"]) == 2
+    assert 0.0 < res["volumes"][0] <= res["volumes"][1]
+    assert res["ratio"] == pytest.approx(
+        res["volume"] / (chip_smoke.BREACH_M3_S * 30.0))
+    assert (tmp_path / "output" / "depth_30.tif").is_file()
+
+
+def test_breach_writer_matches_bench_e2e(tmp_path):
+    """chip_smoke's own breach writer (the port's raster writer, no JAX
+    package) gives the model of tools/bench_e2e.py's writer."""
+    from hipims_tpu_torch.io.xml_config import load_config
+    from tools.bench_e2e import XML, build_thamesmead_class
+
+    spec = build_thamesmead_class(str(tmp_path / "ref"), rows=64, cols=96,
+                                  duration=600.0, outfreq=600.0)
+    (tmp_path / "ref" / "model.xml").write_text(
+        XML.format(precision="double", **spec))
+    want = load_config(tmp_path / "ref" / "model.xml")
+    got = load_config(chip_smoke.write_thamesmead_model(
+        tmp_path / "own", 64, 96, 600.0, 600.0))
+    for name in ("zb", "manning"):
+        assert (getattr(got.domain, name) == getattr(want.domain, name)).all()
+    (g,), (w,) = got.boundaries, want.boundaries
+    for f in ("rows", "cols", "series"):
+        assert (getattr(g, f) == getattr(w, f)).all(), f
+    for f in ("interval", "length", "depth_mode", "discharge_mode"):
+        assert getattr(g, f) == getattr(w, f), f
+    assert got.config.scheme == want.config.scheme == "godunov"
+
+
+def test_kernel_bounds():
+    """Every kernel of the port has a cost entry; the bounds of the
+    fused steps at 9.04 M cells are PERF.md's 40 / 48 / 80 B/cell."""
+    assert set(chip_smoke.KERNEL_COST) == set(chip_smoke.kernel_wrappers())
+    cells = 2944 * 3072
+    for mode, want in (("f32", 0.108), ("f32c", 0.130), ("f64", 0.216)):
+        ms, by = chip_smoke.kernel_bound("inertial_fused", mode, cells, 0.5)
+        assert (round(ms, 3), by) == (want, "bytes")
+    # K5b's arithmetic grows with the share of second-order cells.
+    lo = chip_smoke.kernel_bound("muscl_fused", "f32", cells, 0.0)
+    hi = chip_smoke.kernel_bound("muscl_fused", "f32", cells, 1.0)
+    assert lo == (pytest.approx(0.108, abs=5e-4), "bytes")
+    assert hi[1] == "operations" and hi[0] > lo[0]
+
+
+def test_expect_launches():
+    chip_smoke._expect_launches("x", {"a": 3, "b": 0}, {"a": 3})
+    with pytest.raises(RuntimeError, match="b launched 1 times"):
+        chip_smoke._expect_launches("x", {"a": 3, "b": 1}, {"a": 3})
+    with pytest.raises(RuntimeError, match="a launched 0 times"):
+        chip_smoke._expect_launches("x", {"a": 0}, {"a": 0})
+
+
+def test_kernels_record():
+    """Seven kernels, every key of the kernels line, the f32c numbers of
+    the main-path grid, and the bound computed for the given inputs."""
+    names = list(chip_smoke.KERNEL_SOURCES)
+    rows, cols = chip_smoke.CASES[-1][:2]
+    times = {(n, r, c, m): (1.0 + k, 2.0 + k) for k, n in enumerate(names)
+             for r, c, *_ in chip_smoke.CASES for m in ("f64", "f32c")}
+    rec = chip_smoke.kernels_record(
+        times, {n: 0.0 for n in names}, {n: 7 for n in names}, rows * cols,
+        0.25)
+    assert [r["name"] for r in rec] == names and len(rec) == 7
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k, r in enumerate(rec):
+        assert set(r) == keys and r["route"] == "cuda"
+        assert (r["ms"], r["plain_ms"], r["launches"]) == (1.0 + k, 2.0 + k,
+                                                           7)
+        assert (ROOT / r["source"]).is_file()
+        path, line = r["replaces"].split(":")
+        assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
+        assert (r["bound_ms"], r["bound_by"]) == chip_smoke.kernel_bound(
+            r["name"], "f32c", rows * cols, 0.25)

@@ -20,8 +20,7 @@ import torch
 from chip_smoke import random_domain
 from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import muscl_split as ms
-from hipims_tpu_torch.ops.kernels.stencil import (stencil_step,
-                                                  stencil_step_plain)
+from hipims_tpu_torch.ops.kernels import stencil as st
 from hipims_tpu_torch.state import DomainStatic, FlowState
 
 MODES = ["f64", "f32", "f32c"]
@@ -66,11 +65,46 @@ def _assert_step_close(got, want, mode):
 def test_k1_matches_plain(mode):
     """K1 on the card against its plain version on the same card."""
     state, static, comp, dt = _inputs(mode)
-    before = stencil_step.launches
-    got = stencil_step("godunov", state, static, dt, PARAMS, comp=comp)
-    want = stencil_step_plain(state, static, dt, PARAMS, comp=comp)
-    assert stencil_step.launches == before + 1
+    before = st.godunov_fused.launches
+    got = st.stencil_step("godunov", state, static, dt, PARAMS, comp=comp)
+    want = st.stencil_step_plain(state, static, dt, PARAMS, comp=comp)
+    assert st.godunov_fused.launches == before + 1
     _assert_step_close(got, want, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["inertial", "muscl-hancock"])
+@pytest.mark.parametrize("mode", MODES)
+def test_k4_k5b_match_plain(scheme, mode):
+    """K4 (partial-inertial, sqrt(gh) CFL speed) and K5b (the fused MUSCL
+    step) on the card against their plain versions on the same card; each
+    launch counts on its own wrapper only."""
+    state, static, comp, dt = _inputs(mode)
+    simplified = scheme == "inertial"
+    kernel = {"inertial": st.inertial_fused,
+              "muscl-hancock": st.muscl_fused}[scheme]
+    before = [k.launches for k in st.KERNELS]
+    got = st.stencil_step(scheme, state, static, dt, PARAMS, comp=comp,
+                          simplified_speed=simplified)
+    want = st.PLAIN[scheme](state, static, dt, PARAMS, comp=comp,
+                            simplified_speed=simplified)
+    assert [k.launches for k in st.KERNELS] == [
+        n + (k is kernel) for n, k in zip(before, st.KERNELS)]
+    _assert_step_close(got, want, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_k5b_equals_split12_on_card(mode):
+    """K5b runs the same per-cell code as K2 -> K3: rel 1e-13 is the bar,
+    bit-equal the expectation."""
+    state, static, comp, dt = _inputs(mode)
+    a = st.stencil_step("muscl-hancock", state, static, dt, PARAMS,
+                        comp=comp)
+    b = ms.muscl_step_split(state, static, dt, PARAMS, "split12", comp)
+    for x, y in zip([*a[0], a[1], *a[2:]], [*b[0], b[1], *b[2:]]):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-13, atol=0)
 
 
 @pytest.mark.cuda

@@ -60,5 +60,5 @@ def test_cuda_constants_match_python():
             assert float(value) == python, (header.name, name)
             seen.add(name)
     assert {"GRAVITY", "NODATA", "STOP_FLOW_EPS", "STOP_FLOW_REL",
-            "MINBEE_BETA", "FIRST_ORDER_DRY_DEPTH",
+            "FROUDE_LIMIT", "MINBEE_BETA", "FIRST_ORDER_DRY_DEPTH",
             "SENTINEL_ZMAX"} <= seen

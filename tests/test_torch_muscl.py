@@ -25,6 +25,7 @@ from hipims_tpu.ops import riemann as j_riem
 from hipims_tpu.ops.godunov import SchemeParams as JParams
 from hipims_tpu.ops.oracle_muscl import muscl_step_oracle
 from hipims_tpu.ops.pallas.muscl_split import muscl_step_pallas_split
+from hipims_tpu.ops.pallas.stencil import stencil_step_pallas
 from hipims_tpu.ops.boundaries import UniformBoundary as JUniform
 from hipims_tpu.runtime import Simulation as JSimulation
 from hipims_tpu.runtime import SimulationConfig as JConfig
@@ -34,6 +35,7 @@ from hipims_tpu_torch.ops import limiters, muscl, riemann
 from hipims_tpu_torch.ops.boundaries import UniformBoundary
 from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import muscl_split as ms
+from hipims_tpu_torch.ops.kernels.stencil import stencil_step
 from hipims_tpu_torch.runtime import Simulation, SimulationConfig
 from hipims_tpu_torch.state import from_numpy, to_numpy
 from tests.test_godunov_oracle import random_domain
@@ -290,6 +292,68 @@ def test_muscl_step_split_matches_pallas_compensated(variant):
         np.asarray(want.z, np.float64) + np.asarray(want_comp, np.float64),
         rtol=1e-6, atol=1e-6)
     assert float(speed) == pytest.approx(float(want_speed), rel=1e-4)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_fused_step_matches_pallas_f64(seed):
+    """K5b's entry, ``stencil_step("muscl-hancock")``, against the JAX
+    package's fused Pallas kernel in interpret mode (its only entry
+    point): float64 to 1e-12, speed rel 1e-12."""
+    jstate, jstatic = _inputs(seed, np.float64, rows=32, cols=128)
+    want, want_speed = stencil_step_pallas(
+        "muscl-hancock", jstate, jstatic, 0.05, JParams(2.0, 2.0),
+        tile_rows=8, interpret=True)
+    before = ms.muscl_fused.launches
+    got, speed = stencil_step(
+        "muscl-hancock", from_numpy(jstate, "cpu"), from_numpy(jstatic, "cpu"),
+        torch.tensor(0.05, dtype=torch.float64), SchemeParams(2.0, 2.0))
+    assert ms.muscl_fused.launches == before
+    for g, w, name in zip(got, want, ("z", "zmax", "qx", "qy")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12, err_msg=name)
+    assert float(speed) == pytest.approx(float(want_speed), rel=1e-12)
+
+
+def test_fused_step_matches_pallas_compensated():
+    """Three steps of comp accumulation through K5b's entry against the
+    fused Pallas kernel, at the bars of tests/test_pallas_stencil.py for
+    multi-step MUSCL in f32 (fields 1e-4 / 1e-5, true surface 1e-6)."""
+    jstate, jstatic = _inputs(12, np.float32, rows=32, cols=128)
+    dt = np.float32(0.05)
+    want, want_comp = jstate, np.zeros_like(jstate.z)
+    got = from_numpy(jstate, "cpu")
+    static = from_numpy(jstatic, "cpu")
+    got_comp = torch.zeros_like(got.z)
+    for _ in range(3):
+        want, want_speed, want_comp = stencil_step_pallas(
+            "muscl-hancock", want, jstatic, dt, JParams(2.0, 2.0),
+            tile_rows=8, interpret=True, comp=want_comp)
+        got, speed, got_comp = stencil_step(
+            "muscl-hancock", got, static, torch.tensor(dt),
+            SchemeParams(2.0, 2.0), comp=got_comp)
+    for g, w, name in zip(got, want, ("z", "zmax", "qx", "qy")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(
+        got.z.double().numpy() + got_comp.double().numpy(),
+        np.asarray(want.z, np.float64) + np.asarray(want_comp, np.float64),
+        rtol=1e-6, atol=1e-6)
+    assert float(speed) == pytest.approx(float(want_speed), rel=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_plain_equals_split12(dtype):
+    """K5b's plain version equals the split12 chain's (the card's bar is
+    rel 1e-13; bit-equal on the CPU), with comp in float32."""
+    jstate, jstatic = _inputs(9, dtype, rows=20, cols=28)
+    state, static = from_numpy(jstate, "cpu"), from_numpy(jstatic, "cpu")
+    dt, params = _t(0.05, dtype), SchemeParams(2.0, 2.0)
+    comp = (None if dtype == np.float64
+            else torch.full_like(state.z, 3e-8))
+    a = ms.muscl_step_plain(state, static, dt, params, comp=comp)
+    b = ms.muscl_step_split(state, static, dt, params, "split12", comp)
+    for x, y in zip([*a[0], a[1], *a[2:]], [*b[0], b[1], *b[2:]]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

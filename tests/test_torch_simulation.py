@@ -149,8 +149,7 @@ def test_stall_raises():
     (dict(config=SimulationConfig(io_mode="stream")), NotImplementedError),
     (dict(config=SimulationConfig(io_mode="auto", io_stream_cells=100)),
      NotImplementedError),
-    (dict(config=SimulationConfig(scheme="inertial")),
-     NotImplementedError),
+    (dict(config=SimulationConfig(scheme="no-such-scheme")), ValueError),
     (dict(config=SimulationConfig(forecast_dt_safety=0.5)), ValueError),
 ])
 def test_unported_and_invalid_configs_raise(kw, err):

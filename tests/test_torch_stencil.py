@@ -17,8 +17,7 @@ from hipims_tpu.ops.pallas.stencil import stencil_step_pallas
 from hipims_tpu.state import DomainStatic as JStatic
 from hipims_tpu.state import FlowState as JState
 from hipims_tpu_torch.ops.godunov import SchemeParams
-from hipims_tpu_torch.ops.kernels.stencil import (stencil_step,
-                                                  stencil_step_plain)
+from hipims_tpu_torch.ops.kernels.stencil import KERNELS, stencil_step
 from hipims_tpu_torch.state import from_numpy
 from tests.test_godunov_oracle import random_domain
 
@@ -73,9 +72,10 @@ def test_stencil_step_matches_pallas_compensated():
 
 
 def test_stencil_step_rejects_unported_scheme():
+    """Every scheme of the reference is ported; any other name raises."""
     jstate, jstatic = _domain(0, np.float64, rows=8, cols=8)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stencil_step("muscl-hancock", from_numpy(jstate, "cpu"),
+    with pytest.raises(ValueError, match="unknown scheme"):
+        stencil_step("muscl", from_numpy(jstate, "cpu"),
                      from_numpy(jstatic, "cpu"),
                      torch.tensor(0.05, dtype=torch.float64),
                      SchemeParams(2.0, 2.0))
@@ -83,9 +83,10 @@ def test_stencil_step_rejects_unported_scheme():
 
 def test_cpu_path_never_counts_launches():
     jstate, jstatic = _domain(0, np.float64, rows=8, cols=8)
-    before = stencil_step.launches
-    stencil_step("godunov", from_numpy(jstate, "cpu"),
-                 from_numpy(jstatic, "cpu"),
-                 torch.tensor(0.05, dtype=torch.float64),
-                 SchemeParams(2.0, 2.0))
-    assert stencil_step.launches == before
+    before = [k.launches for k in KERNELS]
+    for scheme in ("godunov", "inertial", "muscl-hancock"):
+        stencil_step(scheme, from_numpy(jstate, "cpu"),
+                     from_numpy(jstatic, "cpu"),
+                     torch.tensor(0.05, dtype=torch.float64),
+                     SchemeParams(2.0, 2.0))
+    assert [k.launches for k in KERNELS] == before
