@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(BX * BY)
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
                          int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
-                         bool friction, bool simplified) {
+                         bool friction) {
   using namespace swe;
   const int c = blockIdx.x * BX + threadIdx.x;
   const int r = blockIdx.y * BY + threadIdx.y;
@@ -304,7 +304,7 @@ __global__ void __launch_bounds__(BX * BY)
     qx_out[i] = qx_o;
     qy_out[i] = qy_o;
     if (COMP) comp_out[i] = comp_o;
-    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified);
+    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false);
   }
   block_max_store<T, BX * BY>(spd, speeds);
 }
@@ -336,12 +336,12 @@ int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
             const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
             T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
             int rows, int cols, double inv_dx, double inv_dy, double vs,
-            double qs, int friction, int simplified, void* stream) {
+            double qs, int friction, void* stream) {
   muscl_correct_kernel<T, COMP, MODE>
       <<<grid_of(rows, cols), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
           z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
           comp_out, speeds, dt, rows, cols, T(inv_dx), T(inv_dy), T(vs),
-          T(qs), friction != 0, simplified != 0);
+          T(qs), friction != 0);
   return (int)cudaGetLastError();
 }
 
@@ -353,12 +353,12 @@ int correct_mode(const T* z, const T* zmax, const T* qx, const T* qy,
                  T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
                  T* speeds, const T* dt, int rows, int cols, double inv_dx,
                  double inv_dy, double vs, double qs, int friction, int mode,
-                 int simplified, void* stream) {
+                 void* stream) {
 #define MUSCL_CORRECT(MODE)                                                  \
   return correct<T, COMP, MODE>(z, zmax, qx, qy, zb, n, pred, comp, z_out,   \
                                 zmax_out, qx_out, qy_out, comp_out, speeds,  \
                                 dt, rows, cols, inv_dx, inv_dy, vs, qs,      \
-                                friction, simplified, stream)
+                                friction, stream)
   switch (mode) {
     case STORED:
       MUSCL_CORRECT(STORED);
@@ -411,17 +411,17 @@ int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       float* comp_out, float* speeds, const float* dt,
                       int rows, int cols, double inv_dx, double inv_dy,
                       double vs, double qs, int friction, int mode,
-                      int simplified, void* stream) {
+                      void* stream) {
   if (comp != nullptr) {
     return correct_mode<float, true>(
         z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
         comp_out, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,
-        mode, simplified, stream);
+        mode, stream);
   }
   return correct_mode<float, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
-      simplified, stream);
+      stream);
 }
 
 int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
@@ -430,11 +430,11 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
                       double* qx_out, double* qy_out, double* speeds,
                       const double* dt, int rows, int cols, double inv_dx,
                       double inv_dy, double vs, double qs, int friction,
-                      int mode, int simplified, void* stream) {
+                      int mode, void* stream) {
   return correct_mode<double, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
-      simplified, stream);
+      stream);
 }
 
 }  // extern "C"

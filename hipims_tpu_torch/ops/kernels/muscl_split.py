@@ -52,8 +52,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
-_CORRECT_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _I, _P]
-_CORRECT_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _I, _P]
+_CORRECT_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
 
 
 @functools.cache
@@ -160,8 +160,7 @@ _CORRECTORS = {STORED: "muscl_correct", RECOMPUTE: "muscl_correct_recompute",
                FUSED: "muscl_fused"}
 
 
-def _correct_cuda(state, static, pred, dt, params, comp, mode,
-                  simplified_speed=False):
+def _correct_cuda(state, static, pred, dt, params, comp, mode):
     """Launch the corrector kernel: K3 (``mode`` STORED, 12 predictor
     planes), K5a-C (RECOMPUTE, 4 base planes) or K5b (FUSED, ``pred`` is
     None: the kernel also rebuilds the base planes)."""
@@ -187,7 +186,7 @@ def _correct_cuda(state, static, pred, dt, params, comp, mode,
     with torch.cuda.device(state.z.device):
         common = (rows, cols, 1.0 / params.dx, 1.0 / params.dy,
                   params.very_small, params.quite_small,
-                  int(params.friction), mode, int(simplified_speed),
+                  int(params.friction), mode,
                   torch.cuda.current_stream().cuda_stream)
         if state.z.dtype == torch.float32:
             cptr = comp.data_ptr() if comp is not None else None
@@ -251,12 +250,14 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
 def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
                 comp=None, simplified_speed=False):
     """K5b: one whole MUSCL-Hancock step + CFL max in one launch.  Returns
-    as ``muscl_step_plain``."""
+    as ``muscl_step_plain``.  The CFL speed is always the full one: the
+    MUSCL-Hancock scheme never takes the simplified sqrt(gh) speed."""
+    if simplified_speed:
+        raise ValueError("muscl_fused: the MUSCL-Hancock step has no "
+                         "simplified CFL speed")
     if not on_card("muscl_fused", state):
-        return muscl_step_plain(state, static, dt, params, comp=comp,
-                                simplified_speed=simplified_speed)
-    out = _correct_cuda(state, static, None, dt, params, comp, FUSED,
-                        simplified_speed)
+        return muscl_step_plain(state, static, dt, params, comp=comp)
+    out = _correct_cuda(state, static, None, dt, params, comp, FUSED)
     muscl_fused.launches += 1
     return out
 

@@ -1,13 +1,12 @@
 """Profile steady batches of a model on the card.
 
-Runs the model to ``--warm-up`` seconds, then times ``--batches`` batches
-of ``--steps`` steps each (host clock around work that ends in a device
+Runs the model to WARM_UP_S simulated seconds, then times BATCHES batches
+of STEPS steps each (host clock around work that ends in a device
 synchronisation), then runs one more batch under ``torch.profiler`` and
-prints the device's busy share of that batch and the device time of each
-kernel per step.  Output events are not written.
+prints the device's busy share of that batch and the device time of the
+TOP kernels per step.  Output events are not written.
 
-    python -m hipims_tpu_torch.tools.profile_batch -c model.xml \\
-        [--scheme inertial] [--warm-up 150] [--steps 50] [--batches 3]
+    python -m hipims_tpu_torch.tools.profile_batch -c model.xml
 """
 
 from __future__ import annotations
@@ -20,6 +19,11 @@ import time
 import torch
 
 from ..io.xml_config import load_config
+
+WARM_UP_S = 150.0
+STEPS = 50
+BATCHES = 3
+TOP = 12
 
 
 def _device_us(event):
@@ -34,12 +38,6 @@ def _device_us(event):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-c", "--config", required=True)
-    ap.add_argument("--scheme", help="override the XML's scheme")
-    ap.add_argument("--warm-up", type=float, default=150.0,
-                    help="simulated seconds before the timed batches")
-    ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--batches", type=int, default=3)
-    ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_batch: CUDA is not available", file=sys.stderr)
@@ -47,8 +45,6 @@ def main(argv=None) -> int:
 
     model = load_config(args.config)
     model.output_targets = []
-    if args.scheme:
-        model.config.scheme = args.scheme
     sim = model.simulation(device=torch.device("cuda", 0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -56,20 +52,20 @@ def main(argv=None) -> int:
         text=True).stdout.strip()
     print(f"{smi}; {model.domain.rows}x{model.domain.cols} "
           f"{model.config.scheme} {model.config.dtype}")
-    sim.run_to(args.warm_up)
+    sim.run_to(WARM_UP_S)
     sync = torch.tensor(model.config.duration, dtype=sim.dtype,
                         device=sim.device)
 
     def batch():
         sim.state, sim.carry, sim.comp = sim._run_batch(
-            sim.state, sim.carry, sim.static, sync, sim.comp, args.steps)
+            sim.state, sim.carry, sim.static, sync, sim.comp, STEPS)
         torch.cuda.synchronize()
 
-    for k in range(args.batches):
+    for k in range(BATCHES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch()
-        ms = (time.perf_counter() - t0) / args.steps * 1e3
+        ms = (time.perf_counter() - t0) / STEPS * 1e3
         print(f"batch {k}: {ms:.4f} ms per step "
               f"(t = {sim._read_carry()[0]:.1f} s)")
 
@@ -86,14 +82,13 @@ def main(argv=None) -> int:
             if getattr(e, "device_type", cuda) == cuda]
     rows = [r for r in rows if r[2] > 0.0]
     busy_us = sum(r[2] for r in rows)
-    print(f"profiled batch: {wall_us / args.steps / 1e3:.4f} ms per step; "
+    print(f"profiled batch: {wall_us / STEPS / 1e3:.4f} ms per step; "
           f"device busy {busy_us / wall_us:.1%} "
-          f"({busy_us / args.steps / 1e3:.4f} ms per step); "
-          f"{sum(r[1] for r in rows) / args.steps:.1f} device kernels per "
-          "step")
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:args.top]:
-        print(f"  {us / args.steps / 1e3:.4f} ms/step  "
-              f"{count / args.steps:5.1f}/step  {key[:90]}")
+          f"({busy_us / STEPS / 1e3:.4f} ms per step); "
+          f"{sum(r[1] for r in rows) / STEPS:.1f} device kernels per step")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:TOP]:
+        print(f"  {us / STEPS / 1e3:.4f} ms/step  "
+              f"{count / STEPS:5.1f}/step  {key[:90]}")
     return 0
 
 

@@ -106,6 +106,18 @@ def test_gpu_platform_without_cuda_fails_cleanly(tmp_path, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
+def test_profile_batch_without_cuda_fails_cleanly(tmp_path, capsys):
+    """The batch profiler takes only the model (-c) and needs the card."""
+    from hipims_tpu_torch.tools import profile_batch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit):
+        profile_batch.main(["-c", "m.xml", "--steps", "5"])
+    assert profile_batch.main(["-c", str(tmp_path / "m.xml")]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("fmt", ["asc", "tif"])
 def test_raster_write_byte_equal(tmp_path, fmt):
     rng = np.random.default_rng(0)

@@ -404,6 +404,17 @@ def test_unknown_variant_raises():
                             SchemeParams(2.0, 2.0), "split16")
 
 
+def test_fused_step_refuses_simplified_speed():
+    """MUSCL-Hancock has only the full CFL speed; K5b's entry refuses the
+    inertial scheme's sqrt(gh) speed rather than ignore it."""
+    jstate, jstatic = _inputs(0, np.float64, rows=8, cols=8)
+    with pytest.raises(ValueError, match="no simplified CFL speed"):
+        stencil_step("muscl-hancock", from_numpy(jstate, "cpu"),
+                     from_numpy(jstatic, "cpu"),
+                     torch.tensor(0.05, dtype=torch.float64),
+                     SchemeParams(2.0, 2.0), simplified_speed=True)
+
+
 @pytest.mark.parametrize("variant", ["split12", "recompute"])
 def test_cpu_path_never_counts_launches(variant):
     jstate, jstatic = _inputs(0, np.float64, rows=8, cols=8)
