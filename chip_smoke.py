@@ -12,8 +12,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    parallel: K1 and K4 (csrc/stencil.cu), and the MUSCL kernels K2, K3,
    K5a-P, K5a-C and K5b (csrc/muscl_split.cu);
 3. K1 against its plain PyTorch version on the card, f64 / f32 / f32c, at
-   a 32x128 random case, 1408x1408 and 2944x3072 (9.04 M cells), with
-   per-step times of both;
+   a 32x128 random case, 1408x1408, the ragged 1297x1441 (one row past a
+   chunk and one column past a strip of the row-marching kernels) and
+   2944x3072 (9.04 M cells), with per-step times of both;
 3b. the same for the four split MUSCL kernels (all 12 predictor planes,
    then the corrector's fields), and the split12 chain (K2 -> K3) against
    the recompute chain (K5a-P -> K5a-C);
@@ -133,8 +134,11 @@ RAIN_MM_H, LOSS_MM_H = 38.4, 6.0
 BREACH_M3_S = 400.0
 
 # Kernel against plain cases: (rows, cols, kernel reps, plain reps); the
+# ragged 1297x1441 ends one row past a chunk and one column past a strip of
+# the row-marching kernels K1 and K3 (tests/test_torch_geometry.py); the
 # last is the main paths' grid, Thamesmead-class 9.04 M cells.
-CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (2944, 3072, 10, 2))
+CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (1297, 1441, 10, 2),
+         (2944, 3072, 10, 2))
 
 
 def _write_dem(root, bed, dx):
@@ -627,7 +631,9 @@ def _main_path_line(label, rows, cols, duration, res, smi):
 # comp plane read and written in f32c where the kernel takes it.
 # Operations: estimates, counted by hand from the CUDA sources (not from
 # the SASS), one per add, subtract, multiply, divide, min/max, compare,
-# sqrt, exp or log, rounded to tens: ``fixed`` for every cell, and
+# sqrt, exp or log, rounded to tens: ``fixed`` for every cell (K1 and K3
+# at two face solves per cell, ~120 operations each, the work the step
+# needs; their earlier design solved four), and
 # ``second`` for each second-order predictor evaluation (predict_cell, or
 # a rebuilt slope in K5a-C), of which a cell makes ``evals`` on its
 # neighbourhood; first-order cells skip that work.  Over PEAK_OPS_PER_S,
@@ -637,12 +643,12 @@ def _main_path_line(label, rows, cols, duration, res, smi):
 # instructions.
 # name: (planes in, planes out, takes comp, fixed, second, evals)
 KERNEL_COST = {
-    "godunov_fused": (6, 4, True, 430, 0, 0),
+    "godunov_fused": (6, 4, True, 380, 0, 0),
     "inertial_fused": (6, 4, True, 160, 0, 0),
     "muscl_fused": (6, 4, True, 550, 180, 5),
     "muscl_predict": (5, 12, False, 10, 180, 1),
     "muscl_predict_base": (5, 4, False, 10, 180, 1),
-    "muscl_correct": (18, 4, True, 500, 0, 0),
+    "muscl_correct": (18, 4, True, 420, 0, 0),
     "muscl_correct_recompute": (10, 4, True, 540, 30, 6),
 }
 

@@ -20,9 +20,9 @@
 //     placeholder (z, z - zb, qx, qy) and zero slopes;
 //   * corrector, per cell outside the two-cell ring: its own four faces
 //     and the facing faces of its four neighbours, each base +- 0.5 slope,
-//     with the slopes loaded (STORED) or rebuilt from the radius-2 state
-//     neighbourhood (RECOMPUTE), or, in K5b (FUSED), the predictor of all
-//     five cells run inline from the state; the four MUSCL interfaces
+//     with the slopes loaded (K3) or rebuilt from the radius-2 state
+//     neighbourhood (K5a-C, RECOMPUTE), or, in K5b (FUSED), the predictor of
+//     all five cells run inline from the state; the four MUSCL interfaces
 //     (swe_common.cuh), datum terms and sources, the update (Neumaier
 //     comp_add when COMP), implicit friction, the dry clamp (judged on
 //     z + comp when COMP) BEFORE the max-FSL update, and the skips:
@@ -43,23 +43,27 @@
 // K5b 0.108 / 0.130 / 0.216 ms.  These are lower bounds derived from the
 // plane counts, not measurements.  Measured on one H100 80GB HBM3 at a
 // 700 W power limit (PERF.md), the predictors reach ~60% of that bandwidth
-// and K3 ~40%, but K5a-C only ~19%: rebuilding ten slope vectors per cell,
-// not memory, bounds it, so split12 is the faster pair on this card despite
-// moving more bytes.  K5b, with five predictor evaluations and four MUSCL
-// HLLC solves per cell, is bound by its arithmetic even more.
+// and K3 ~59% (41% before its redesign), but K5a-C only ~19%: rebuilding
+// ten slope vectors per cell, not memory, bounds it, so split12 is the
+// faster pair on this card despite moving more bytes.  K5b, with five
+// predictor evaluations and four MUSCL HLLC solves per cell, is bound by its
+// arithmetic even more.
 //
-// Design, kept simple (as K1, stencil.cu): one thread per cell on 32x8
-// blocks, neighbours read through L1/L2, every face solved by both of its
-// cells (bit-identical under --fmad=false), dt read on the device through a
-// pointer.  K5b is the corrector template with a third source of its
-// inputs, so it shares every line of arithmetic with K2 and K5a-C and is
-// bit-equal to the split chains.  Shared-memory tiles (each cell's
-// predictor run once per block, not five times) and single-solve faces
-// are later work.
+// Design.  K3 marches rows with one solve per face, as K1 does (stencil.cu,
+// march.cuh): its note stands above muscl_correct_kernel below.  K2,
+// K5a-P, K5a-C and K5b keep the first, simple design until their own
+// redesigns: one thread per cell on 32x8 blocks, neighbours read through
+// L1/L2, every face solved by both of its cells (bit-identical under
+// --fmad=false), dt read on the device through a pointer.  K5b is the
+// rebuilding corrector template with a third source of its inputs, so it
+// shares every line of arithmetic with K2 and K5a-C and is bit-equal to the
+// split chains.  Shared-memory tiles (each cell's predictor run once per
+// block, not five times) are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "march.cuh"
 #include "muscl_common.cuh"
 #include "swe_common.cuh"
 
@@ -115,34 +119,224 @@ __global__ void __launch_bounds__(BX * BY)
   }
 }
 
-// Where the corrector finds the predicted base planes and the slopes:
-// STORED (K3) loads all 12 predictor planes; RECOMPUTE (K5a-C) loads the 4
-// base planes and rebuilds the slopes; FUSED (K5b) rebuilds both, running
-// the predictor of each of its five cells inline, and reads no predictor
-// plane.
-enum CorrectMode { STORED = 0, RECOMPUTE = 1, FUSED = 2 };
+// K3, the split12 corrector, replaces hipims_tpu/ops/pallas/muscl_split.py
+// ::_corrector_kernel.  What bounds it on an H100: it reads 18 planes (the
+// 12 predictor planes, z, zmax, qx, qy, zb, n) and writes 4, 88 B/cell in
+// f32 (96 B/cell in f32c, with comp read and written), 176 B/cell in f64:
+// at 3.35 TB/s no less than 0.238 / 0.259 / 0.475 ms for 9.04 M cells.  The
+// step needs two MUSCL HLLC solves per cell (three IEEE divisions and two
+// square roots each, --fmad=false), and the first design solved four,
+// loading the base and slopes of four neighbours per cell through L1.
+//
+// Row marching, one solve per face (march.cuh), as K1: each warp owns 30
+// columns of a chunk of rows and reads each row of each plane once, by one
+// coalesced load per plane; the next row's face inputs (base, slopes, qx,
+// qy, zmax) are loaded into registers while this row's x face is solved.
+// A lane extrapolates its own cell's four face estimates (base +- 0.5
+// slope), solves its east face against the west estimate of the lane to
+// its east (shuffled), takes its west face from the lane to its west, and
+// solves its north face against the next row's south estimate, which it
+// keeps as the next row's south face.  The local datum stays per cell, from
+// the cell's own face estimates.  The dry-neighbourhood skip (the
+// neighbours' zmax, a reference quirk) reads a ballot and the rows kept.
+// The solves and their argument order are those of the plain version, so
+// the bits do not change.
+
+// One lane's column in one row, as the corrector's faces need it: the
+// predictor's base state and slopes, the cell discharges (the stopping
+// conditions') and zmax (the dry-neighbourhood skip).
+template <typename T>
+struct PredRow {
+  Quad<T> base, sx, sy;
+  T qx, qy, zmax;
+};
+
+template <typename T>
+__device__ __forceinline__ PredRow<T> load_pred_row(
+    const T* __restrict__ pred, int64_t plane, const T* __restrict__ qx,
+    const T* __restrict__ qy, const T* __restrict__ zmax, int64_t i) {
+  return PredRow<T>{load_quad(pred, plane, i),
+                    load_quad(pred + 4 * plane, plane, i),
+                    load_quad(pred + 8 * plane, plane, i), qx[i], qy[i],
+                    zmax[i]};
+}
+
+// The y face between a cell and the cell north of it: the south cell's
+// north estimate against the north cell's south estimate; along = qy.
+template <typename T>
+__device__ __forceinline__ swe::Face<T> muscl_north_face(const PredRow<T>& s,
+                                                         const PredRow<T>& n,
+                                                         T vs) {
+  using swe::extrap;
+  const Quad<T> hi = extrap(s.base, s.sy, T(0.5));
+  const Quad<T> lo = extrap(n.base, n.sy, T(-0.5));
+  return swe::solve_interface_muscl(hi.z, hi.h, hi.qy, hi.qx, lo.z, lo.h,
+                                    lo.qy, lo.qx, s.qy, n.qy, s.qx, n.qx,
+                                    vs);
+}
+
+template <typename T, bool COMP>
+__global__ void __launch_bounds__(swe::MARCH_THREADS)
+    muscl_correct_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
+                         const T* __restrict__ qx, const T* __restrict__ qy,
+                         const T* __restrict__ zb, const T* __restrict__ n,
+                         const T* __restrict__ pred,
+                         const T* __restrict__ comp, T* __restrict__ z_out,
+                         T* __restrict__ zmax_out, T* __restrict__ qx_out,
+                         T* __restrict__ qy_out, T* __restrict__ comp_out,
+                         T* __restrict__ speeds, const T* __restrict__ dt_ptr,
+                         int rows, int cols, int chunk, T inv_dx, T inv_dy,
+                         T vs, T qs, bool friction) {
+  using namespace swe;
+  const MarchPos p = march_pos(rows, cols, chunk);
+  const int64_t plane = int64_t(rows) * cols;
+  const T dt = *dt_ptr;
+
+  // The chunk's first south face, from the row before it (a clamped copy
+  // for the first chunk, whose first rows are edge ring).
+  const PredRow<T> before = load_pred_row(
+      pred, plane, qx, qy, zmax, march_index(p.r0 - 1, rows, cols, p.cc));
+  PredRow<T> cur = load_pred_row(pred, plane, qx, qy, zmax,
+                                 march_index(p.r0, rows, cols, p.cc));
+  Face<T> fs = muscl_north_face(before, cur, vs);
+  bool low_s = before.zmax < vs;
+  T spd = T(0);
+
+  for (int r = p.r0; r < p.r_end; ++r) {
+    const int64_t i = march_index(r, rows, cols, p.cc);
+    // In flight while this row's x face is solved.
+    const PredRow<T> next = load_pred_row(
+        pred, plane, qx, qy, zmax, march_index(r + 1, rows, cols, p.cc));
+    const T zc = z[i];
+    const T zbc = zb[i];
+    const T n_c = friction ? n[i] : T(0);
+    const T comp_c = COMP ? comp[i] : T(0);
+
+    // x faces: this lane's east face against the west estimate of the lane
+    // to its east, and its west face from the lane to its west; along = qx.
+    const Quad<T> ex_e = extrap(cur.base, cur.sx, T(0.5));
+    const Quad<T> ex_w = extrap(cur.base, cur.sx, T(-0.5));
+    const Face<T> fe = solve_interface_muscl(
+        ex_e.z, ex_e.h, ex_e.qx, ex_e.qy, from_east(ex_w.z), from_east(ex_w.h),
+        from_east(ex_w.qx), from_east(ex_w.qy), cur.qx, from_east(cur.qx),
+        cur.qy, from_east(cur.qy), vs);
+    const Face<T> fw = face_from_west(fe, p.lane);
+    // y faces: the north face; the south face is the row before's north.
+    const Face<T> fn = muscl_north_face(cur, next, vs);
+    const bool low_c = cur.zmax < vs;
+    const unsigned low_row = __ballot_sync(FULL_MASK, low_c);
+
+    if (p.writes) {
+      const T zmax_c = cur.zmax, qx_c0 = cur.qx, qy_c0 = cur.qy;
+      T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
+      T comp_o = comp_c;
+      const bool ring = (r < 2) || (r >= rows - 2) || (p.c < 2) ||
+                        (p.c >= cols - 2);
+      if (!ring) {
+        const Quad<T> ex_n = extrap(cur.base, cur.sy, T(0.5));
+        const Quad<T> ex_s = extrap(cur.base, cur.sy, T(-0.5));
+        // Local datum from the cell's own face-extrapolated surface.
+        T zbl_e, c_e, zbl_w, c_w, zbl_n, c_n, zbl_s, c_s;
+        local_datum(ex_e.z, fe.zbm, zbl_e, c_e);
+        local_datum(ex_w.z, fw.zbm, zbl_w, c_w);
+        local_datum(ex_n.z, fn.zbm, zbl_n, c_n);
+        local_datum(ex_s.z, fs.zbm, zbl_s, c_s);
+
+        const T zf_e = fe.hr + zbl_e;
+        const T zf_w = fw.hl + zbl_w;
+        const T zf_n = fn.hr + zbl_n;
+        const T zf_s = fs.hl + zbl_s;
+        const T src_x =
+            T(-GRAVITY * 0.5) * (zf_e + zf_w) * (zbl_e - zbl_w) * inv_dx;
+        const T src_y =
+            T(-GRAVITY * 0.5) * (zf_n + zf_s) * (zbl_n - zbl_s) * inv_dy;
+
+        const T d_z = round_small(
+            (fe.mass - fw.mass) * inv_dx + (fn.mass - fs.mass) * inv_dy, vs);
+        const T d_qx = round_small(((fe.along + c_e) - (fw.along + c_w)) *
+                                           inv_dx +
+                                       (fn.cross - fs.cross) * inv_dy - src_x,
+                                   vs);
+        const T d_qy = round_small((fe.cross - fw.cross) * inv_dx +
+                                       ((fn.along + c_n) - (fs.along + c_s)) *
+                                           inv_dy -
+                                       src_y,
+                                   vs);
+
+        const bool stop = fe.stop_l || fw.stop_r || fn.stop_l || fs.stop_r;
+        const T qx_c = stop ? T(0) : qx_c0;
+        const T qy_c = stop ? T(0) : qy_c0;
+        T z_new, comp_new = T(0);
+        if (COMP) {
+          comp_add(zc, comp_c, -(dt * d_z), z_new, comp_new);
+        } else {
+          z_new = zc - dt * d_z;
+        }
+        T qx_new = qx_c - dt * d_qx;
+        T qy_new = qy_c - dt * d_qy;
+
+        if (friction) {
+          implicit_friction(z_new, qx_new, qy_new, zbc, n_c,
+                            clamp_min(dt, vs), vs);
+        }
+
+        // Dry clamp BEFORE the max-FSL update (the reverse of K1).
+        const bool dry_new =
+            COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
+        z_new = dry_new ? zbc : z_new;
+        const T zmax_new =
+            ((z_new > zmax_c) && (zmax_c > T(-9990.0))) ? z_new : zmax_c;
+
+        const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
+        const bool dry5 = (zc - zbc < vs) && (next.zmax < vs) && low_s &&
+                          east_bit(low_row, p.lane) &&
+                          west_bit(low_row, p.lane);
+        const bool keep = disabled || dry5 || (dt <= T(0));
+        if (!keep) {
+          z_o = z_new;
+          zmax_o = zmax_new;
+          qx_o = qx_new;
+          qy_o = qy_new;
+          if (COMP) comp_o = dry_new ? T(0) : comp_new;
+        }
+      }
+      z_out[i] = z_o;
+      zmax_out[i] = zmax_o;
+      qx_out[i] = qx_o;
+      qy_out[i] = qy_o;
+      if (COMP) comp_out[i] = comp_o;
+      spd = nan_max(spd, cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false));
+    }
+    fs = fn;
+    low_s = low_c;
+    cur = next;
+  }
+  block_max_store<T, MARCH_THREADS>(spd, speeds);
+}
+
+// Where the rebuilding corrector finds the predicted base planes and the
+// slopes: RECOMPUTE (K5a-C) loads the 4 base planes and rebuilds the
+// slopes; FUSED (K5b) rebuilds both, running the predictor of each of its
+// five cells inline, and reads no predictor plane.
+enum CorrectMode { RECOMPUTE = 1, FUSED = 2 };
 
 // Cell i's limited slope along the axis whose neighbours lie ``stride``
-// apart (1: sx, cols: sy), as the predictor stored it: zero on a
-// first-order cell.  REBUILD rebuilds it from the state.
-template <typename T, bool REBUILD>
-__device__ __forceinline__ Quad<T> stored_slope(
+// apart (1: sx, cols: sy), as the predictor stores it: zero on a
+// first-order cell.
+template <typename T>
+__device__ __forceinline__ Quad<T> rebuilt_slope(
     const T* __restrict__ z, const T* __restrict__ zmax,
     const T* __restrict__ qx, const T* __restrict__ qy,
-    const T* __restrict__ zb, const T* __restrict__ pred, int64_t plane,
-    int64_t i, int cols, int64_t stride, T vs) {
-  if (REBUILD) {
-    if (swe::cell_first_order(z, zmax, zb, i, cols)) {
-      return Quad<T>{T(0), T(0), T(0), T(0)};
-    }
-    return swe::cell_slope(z, zb, qx, qy, i, stride, vs);
+    const T* __restrict__ zb, int64_t i, int cols, int64_t stride, T vs) {
+  if (swe::cell_first_order(z, zmax, zb, i, cols)) {
+    return Quad<T>{T(0), T(0), T(0), T(0)};
   }
-  return load_quad(pred + (stride == 1 ? 4 : 8) * plane, plane, i);
+  return swe::cell_slope(z, zb, qx, qy, i, stride, vs);
 }
 
 template <typename T, bool COMP, int MODE>
 __global__ void __launch_bounds__(BX * BY)
-    muscl_correct_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
+    muscl_rebuild_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
                          const T* __restrict__ zb, const T* __restrict__ n,
                          const T* __restrict__ pred,
@@ -193,9 +387,8 @@ __global__ void __launch_bounds__(BX * BY)
         PREDICT(is, base_s, unused, sy_s);
 #undef PREDICT
       } else {
-#define SLOPE(cell, stride)                                              \
-  stored_slope<T, MODE == RECOMPUTE>(z, zmax, qx, qy, zb, pred, plane, cell, \
-                                     cols, stride, vs)
+#define SLOPE(cell, stride) \
+  rebuilt_slope(z, zmax, qx, qy, zb, cell, cols, stride, vs)
         sx = SLOPE(i, 1);
         sy = SLOPE(i, ny);
         sx_e = SLOPE(ie, 1);
@@ -331,13 +524,32 @@ int predict(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COMP, int MODE>
+template <typename T, bool COMP>
 int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
+            const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
+            T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
+            int rows, int cols, int chunk, int grid_x, int grid_y,
+            double inv_dx, double inv_dy, double vs, double qs, int friction,
+            void* stream) {
+  if (!swe::march_geometry_ok(rows, cols, chunk, grid_x, grid_y)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  muscl_correct_kernel<T, COMP>
+      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+         (cudaStream_t)stream>>>(
+          z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
+          comp_out, speeds, dt, rows, cols, chunk, T(inv_dx), T(inv_dy),
+          T(vs), T(qs), friction != 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool COMP, int MODE>
+int rebuild(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
             const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
             T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
             int rows, int cols, double inv_dx, double inv_dy, double vs,
             double qs, int friction, void* stream) {
-  muscl_correct_kernel<T, COMP, MODE>
+  muscl_rebuild_kernel<T, COMP, MODE>
       <<<grid_of(rows, cols), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
           z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
           comp_out, speeds, dt, rows, cols, T(inv_dx), T(inv_dy), T(vs),
@@ -345,45 +557,40 @@ int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
   return (int)cudaGetLastError();
 }
 
-// The corrector instantiation for ``mode`` (a CorrectMode); -1 for an
-// unknown mode (cudaErrorInvalidValue is 1, so the wrapper raises).
+// The rebuilding corrector's instantiation for ``mode`` (a CorrectMode);
+// -1 for an unknown mode (cudaErrorInvalidValue is 1, so the wrapper
+// raises).
 template <typename T, bool COMP>
-int correct_mode(const T* z, const T* zmax, const T* qx, const T* qy,
+int rebuild_mode(const T* z, const T* zmax, const T* qx, const T* qy,
                  const T* zb, const T* n, const T* pred, const T* comp,
                  T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
                  T* speeds, const T* dt, int rows, int cols, double inv_dx,
                  double inv_dy, double vs, double qs, int friction, int mode,
                  void* stream) {
-#define MUSCL_CORRECT(MODE)                                                  \
-  return correct<T, COMP, MODE>(z, zmax, qx, qy, zb, n, pred, comp, z_out,   \
+#define MUSCL_REBUILD(MODE)                                                  \
+  return rebuild<T, COMP, MODE>(z, zmax, qx, qy, zb, n, pred, comp, z_out,   \
                                 zmax_out, qx_out, qy_out, comp_out, speeds,  \
                                 dt, rows, cols, inv_dx, inv_dy, vs, qs,      \
                                 friction, stream)
   switch (mode) {
-    case STORED:
-      MUSCL_CORRECT(STORED);
     case RECOMPUTE:
-      MUSCL_CORRECT(RECOMPUTE);
+      MUSCL_REBUILD(RECOMPUTE);
     case FUSED:
-      MUSCL_CORRECT(FUSED);
+      MUSCL_REBUILD(FUSED);
   }
-#undef MUSCL_CORRECT
+#undef MUSCL_REBUILD
   return -1;
 }
 
 }  // namespace
 
+// Each function returns the CUDA error code of its launch (0 = success;
+// cudaErrorInvalidValue for a geometry K3 cannot take).  comp == nullptr
+// selects the uncompensated instantiation.
 extern "C" {
-
-// Number of per-block partial maxima the corrector writes for a grid.
-int muscl_correct_partials(int rows, int cols) {
-  const dim3 g = grid_of(rows, cols);
-  return int(g.x * g.y);
-}
 
 // pred holds 12 (or 4) contiguous (rows, cols) planes: base z, h, qx,
 // qy, then with store_slopes sx(z, h, qx, qy) and sy(z, h, qx, qy).
-// Each function returns the CUDA error code of its launch (0 = success).
 int muscl_predict_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, float* pred,
                       int store_slopes, const float* dt, int rows, int cols,
@@ -400,11 +607,52 @@ int muscl_predict_f64(const double* z, const double* zmax, const double* qx,
                          cols, inv_dx, inv_dy, vs, stream);
 }
 
-// mode (a CorrectMode): STORED, pred holds all 12 predictor planes;
-// RECOMPUTE, the 4 base planes and the corrector rebuilds the slopes;
-// FUSED, pred is unused (may be null) and the kernel runs the whole step.
-// comp == nullptr selects the uncompensated instantiation.
+// K3 on all 12 predictor planes.  chunk, grid_x, grid_y: ops/kernels/
+// geometry.py march_geometry; speeds holds grid_x * grid_y partial maxima.
 int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
+                      const float* qy, const float* zb, const float* n,
+                      const float* pred, const float* comp, float* z_out,
+                      float* zmax_out, float* qx_out, float* qy_out,
+                      float* comp_out, float* speeds, const float* dt,
+                      int rows, int cols, int chunk, int grid_x, int grid_y,
+                      double inv_dx, double inv_dy, double vs,
+                      double qs, int friction, void* stream) {
+  if (comp != nullptr) {
+    return correct<float, true>(
+        z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+        inv_dx, inv_dy, vs, qs, friction, stream);
+  }
+  return correct<float, false>(
+      z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, stream);
+}
+
+int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
+                      const double* qy, const double* zb, const double* n,
+                      const double* pred, double* z_out, double* zmax_out,
+                      double* qx_out, double* qy_out, double* speeds,
+                      const double* dt, int rows, int cols, int chunk,
+                      int grid_x, int grid_y, double inv_dx,
+                      double inv_dy, double vs, double qs, int friction,
+                      void* stream) {
+  return correct<double, false>(
+      z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, stream);
+}
+
+// K5a-C and K5b: the number of per-block partial maxima they write.
+int muscl_rebuild_partials(int rows, int cols) {
+  const dim3 g = grid_of(rows, cols);
+  return int(g.x * g.y);
+}
+
+// K5a-C and K5b.  mode (a CorrectMode): RECOMPUTE, pred holds the 4 base
+// planes and the kernel rebuilds the slopes; FUSED, pred is unused (may be
+// null) and the kernel runs the whole step.
+int muscl_rebuild_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, const float* n,
                       const float* pred, const float* comp, float* z_out,
                       float* zmax_out, float* qx_out, float* qy_out,
@@ -413,25 +661,25 @@ int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       double vs, double qs, int friction, int mode,
                       void* stream) {
   if (comp != nullptr) {
-    return correct_mode<float, true>(
+    return rebuild_mode<float, true>(
         z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
         comp_out, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,
         mode, stream);
   }
-  return correct_mode<float, false>(
+  return rebuild_mode<float, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
       stream);
 }
 
-int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
+int muscl_rebuild_f64(const double* z, const double* zmax, const double* qx,
                       const double* qy, const double* zb, const double* n,
                       const double* pred, double* z_out, double* zmax_out,
                       double* qx_out, double* qy_out, double* speeds,
                       const double* dt, int rows, int cols, double inv_dx,
                       double inv_dy, double vs, double qs, int friction,
                       int mode, void* stream) {
-  return correct_mode<double, false>(
+  return rebuild_mode<double, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
       stream);

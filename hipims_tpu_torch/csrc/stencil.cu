@@ -27,39 +27,79 @@
 //     ``simplified``, as the inertial scheme runs), reduced to one partial
 //     max per block (the wrapper takes the max over the partials).
 //
-// What bounds them on an H100: device memory traffic.  Per cell each reads
-// 6 planes (z, zmax, qx, qy, zb, n) and writes 4: at least 40 B/cell in f32
-// (48 B with the comp plane read and written) and 80 B/cell in f64.  K1
-// does 4 HLLC solves with sqrt plus one exp/log pair per cell; K4 four face
-// discharges, each with one exp/log pair, a sqrt and three divisions.  At
-// 3.35 TB/s a 9.04 M-cell step cannot take less than 0.108 ms (f32), 0.130
-// ms (f32c), 0.216 ms (f64).
+// What bounds them on an H100.  Per cell each reads 6 planes (z, zmax, qx,
+// qy, zb, n) and writes 4: at least 40 B/cell in f32 (48 B with the comp
+// plane read and written) and 80 B/cell in f64; at 3.35 TB/s a 9.04 M-cell
+// step cannot take less than 0.108 ms (f32), 0.130 ms (f32c), 0.216 ms
+// (f64).  The step needs two HLLC solves per cell (one per face), each with
+// three IEEE divisions and two square roots, plus one exp/log pair and
+// three divisions of friction; built with --fmad=false, so that the kernel
+// stays bit-equal to its plain version, that arithmetic issues slowly.
 //
-// Design, kept simple: one thread per cell on 32x8 blocks, neighbours read
-// through L1/L2 (each plane value is read by up to 5 threads), each thread
-// solving its own four faces, so every face is solved twice, once by each of
-// its cells.  --fmad=false keeps the two solves bit-identical (K1), and
-// keeps each kernel bit-equal to its plain version: K4's depth^(10/3) is
-// one exp/log pair on both sides, and |q| / depth / celerity two divisions
-// in that order.  The block max is a warp shuffle then a shared-memory
-// pass; NaN propagates, as in torch.amax, so a diverged state reaches the
-// host's divergence check.  dt is read on the device from a 0-d tensor,
-// never passed by value: the host never learns dt inside a batch, so a
-// batch runs without a sync.  Shared-memory tiles, single-solve faces and
-// fusing the boundary pass are later work.
+// K1's design: row marching, one solve per face (march.cuh).  Each warp
+// owns a strip of 30 columns (32 lanes with a halo lane on either side) and
+// marches down a chunk of rows.  Each row of each input plane is read once
+// per warp, by one coalesced load per plane; the next row is loaded into
+// registers while this row's x face is solved, which is the role the TPU
+// kernel's double-buffered row DMA plays (a row loaded two ahead measured
+// 2% slower on the H100: PERF.md).  A lane solves its cell's
+// east face and takes its west face from the lane to its west by shuffles;
+// it solves its north face and keeps it, in registers, as the next row's
+// south face.  So each face inside a warp is solved once (the old design
+// solved every face twice, once by each of its cells), and only the faces
+// at a warp's two edge columns and a chunk's first south face are solved a
+// second time, by the neighbouring warp or chunk.  The solves and their
+// argument order are those of the plain version (west or south cell left),
+// so the bits do not change.  The dry-neighbourhood skip reads the
+// neighbours' depth flags from a ballot and from the rows kept.
+//
+// K4 keeps the first, simple design until its own redesign: one thread per
+// cell on 32x8 blocks, neighbours read through L1/L2, each thread computing
+// its own four face discharges.  Its launch and partials count are its own.
+//
+// Both: --fmad=false keeps each kernel bit-equal to its plain version (K4's
+// depth^(10/3) is one exp/log pair on both sides, and |q| / depth /
+// celerity two divisions in that order).  The block max is a warp shuffle
+// then a shared-memory pass; NaN propagates, as in torch.amax, so a
+// diverged state reaches the host's divergence check.  dt is read on the
+// device from a 0-d tensor, never passed by value: the host never learns dt
+// inside a batch, so a batch runs without a sync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "march.cuh"
 #include "swe_common.cuh"
 
 namespace {
 
-constexpr int BX = 32;
-constexpr int BY = 8;
+using swe::Face;
+
+// One lane's column in one row: the first-order interface inputs.
+template <typename T>
+struct Column {
+  T z, zb, qx, qy;
+};
+
+template <typename T>
+__device__ __forceinline__ Column<T> load_column(const T* __restrict__ z,
+                                                 const T* __restrict__ zb,
+                                                 const T* __restrict__ qx,
+                                                 const T* __restrict__ qy,
+                                                 int64_t i) {
+  return Column<T>{z[i], zb[i], qx[i], qy[i]};
+}
+
+// The y face between a cell and the cell north of it; along = qy.
+template <typename T>
+__device__ __forceinline__ Face<T> north_face(const Column<T>& s,
+                                              const Column<T>& n, T vs) {
+  return swe::solve_interface(s.z, s.zb, s.qy, s.qx, n.z, n.zb, n.qy, n.qx,
+                              vs);
+}
 
 template <typename T, bool COMP>
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(swe::MARCH_THREADS)
     godunov_step_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                         const T* __restrict__ qx, const T* __restrict__ qy,
                         const T* __restrict__ zb, const T* __restrict__ n,
@@ -67,116 +107,128 @@ __global__ void __launch_bounds__(BX * BY)
                         T* __restrict__ zmax_out, T* __restrict__ qx_out,
                         T* __restrict__ qy_out, T* __restrict__ comp_out,
                         T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                        int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
-                        bool friction, bool simplified) {
+                        int rows, int cols, int chunk, T inv_dx, T inv_dy,
+                        T vs, T qs, bool friction, bool simplified) {
   using namespace swe;
-  const int c = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  const bool inside = (r < rows) && (c < cols);
+  const MarchPos p = march_pos(rows, cols, chunk);
+  const T dt = *dt_ptr;
+
+  // The chunk's first south face, from the row before it (a clamped copy
+  // for the first chunk, whose first row is edge ring).
+  const Column<T> before =
+      load_column(z, zb, qx, qy, march_index(p.r0 - 1, rows, cols, p.cc));
+  Column<T> cur =
+      load_column(z, zb, qx, qy, march_index(p.r0, rows, cols, p.cc));
+  Face<T> fs = north_face(before, cur, vs);
+  bool dry_s = before.z - before.zb < vs;
   T spd = T(0);
 
-  if (inside) {
-    const int64_t i = int64_t(r) * cols + c;
-    const T zc = z[i];
+  for (int r = p.r0; r < p.r_end; ++r) {
+    const int64_t i = march_index(r, rows, cols, p.cc);
+    // In flight while this row's x face is solved.
+    const Column<T> next =
+        load_column(z, zb, qx, qy, march_index(r + 1, rows, cols, p.cc));
     const T zmax_c = zmax[i];
-    const T qx_c0 = qx[i];
-    const T qy_c0 = qy[i];
-    const T zbc = zb[i];
-    T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
-    T comp_o = T(0);
-    if (COMP) comp_o = comp[i];
+    const T n_c = friction ? n[i] : T(0);
+    const T comp_c = COMP ? comp[i] : T(0);
 
-    const bool ring = (r == 0) || (r == rows - 1) || (c == 0) ||
-                      (c == cols - 1);
-    if (!ring) {
-      const T dt = *dt_ptr;
-      const int64_t ie = i + 1, iw = i - 1, in = i + cols, is = i - cols;
-      const T z_e = z[ie], z_w = z[iw], z_n = z[in], z_s = z[is];
-      const T zb_e = zb[ie], zb_w = zb[iw], zb_n = zb[in], zb_s = zb[is];
-      const T qx_e = qx[ie], qx_w = qx[iw], qx_n = qx[in], qx_s = qx[is];
-      const T qy_e = qy[ie], qy_w = qy[iw], qy_n = qy[in], qy_s = qy[is];
+    // x faces: this lane's east face, and its west face from the lane to
+    // its west; along = qx.
+    const Face<T> fe = solve_interface(
+        cur.z, cur.zb, cur.qx, cur.qy, from_east(cur.z), from_east(cur.zb),
+        from_east(cur.qx), from_east(cur.qy), vs);
+    const Face<T> fw = face_from_west(fe, p.lane);
+    // y faces: the north face; the south face is the row before's north.
+    const Face<T> fn = north_face(cur, next, vs);
+    const bool dry_c = cur.z - cur.zb < vs;
+    const unsigned dry_row = __ballot_sync(FULL_MASK, dry_c);
 
-      // x faces: (cell, east) and (west, cell); along = qx.
-      const Face<T> fe =
-          solve_interface(zc, zbc, qx_c0, qy_c0, z_e, zb_e, qx_e, qy_e, vs);
-      const Face<T> fw =
-          solve_interface(z_w, zb_w, qx_w, qy_w, zc, zbc, qx_c0, qy_c0, vs);
-      // y faces: (cell, north) and (south, cell); along = qy.
-      const Face<T> fn =
-          solve_interface(zc, zbc, qy_c0, qx_c0, z_n, zb_n, qy_n, qx_n, vs);
-      const Face<T> fs =
-          solve_interface(z_s, zb_s, qy_s, qx_s, zc, zbc, qy_c0, qx_c0, vs);
+    if (p.writes) {
+      const T zc = cur.z, zbc = cur.zb, qx_c0 = cur.qx, qy_c0 = cur.qy;
+      T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
+      T comp_o = comp_c;
+      const bool ring = (r == 0) || (r == rows - 1) || (p.c == 0) ||
+                        (p.c == cols - 1);
+      if (!ring) {
+        T zbl_e, c_e, zbl_w, c_w, zbl_n, c_n, zbl_s, c_s;
+        local_datum(zc, fe.zbm, zbl_e, c_e);
+        local_datum(zc, fw.zbm, zbl_w, c_w);
+        local_datum(zc, fn.zbm, zbl_n, c_n);
+        local_datum(zc, fs.zbm, zbl_s, c_s);
 
-      T zbl_e, c_e, zbl_w, c_w, zbl_n, c_n, zbl_s, c_s;
-      local_datum(zc, fe.zbm, zbl_e, c_e);
-      local_datum(zc, fw.zbm, zbl_w, c_w);
-      local_datum(zc, fn.zbm, zbl_n, c_n);
-      local_datum(zc, fs.zbm, zbl_s, c_s);
+        const T zf_e = fe.hr + zbl_e;
+        const T zf_w = fw.hl + zbl_w;
+        const T zf_n = fn.hr + zbl_n;
+        const T zf_s = fs.hl + zbl_s;
+        const T src_x =
+            T(-GRAVITY * 0.5) * (zf_e + zf_w) * (zbl_e - zbl_w) * inv_dx;
+        const T src_y =
+            T(-GRAVITY * 0.5) * (zf_n + zf_s) * (zbl_n - zbl_s) * inv_dy;
 
-      const T zf_e = fe.hr + zbl_e;
-      const T zf_w = fw.hl + zbl_w;
-      const T zf_n = fn.hr + zbl_n;
-      const T zf_s = fs.hl + zbl_s;
-      const T src_x =
-          T(-GRAVITY * 0.5) * (zf_e + zf_w) * (zbl_e - zbl_w) * inv_dx;
-      const T src_y =
-          T(-GRAVITY * 0.5) * (zf_n + zf_s) * (zbl_n - zbl_s) * inv_dy;
+        T d_z = (fe.mass - fw.mass) * inv_dx + (fn.mass - fs.mass) * inv_dy;
+        T d_qx = ((fe.along + c_e) - (fw.along + c_w)) * inv_dx +
+                 (fn.cross - fs.cross) * inv_dy - src_x;
+        T d_qy = (fe.cross - fw.cross) * inv_dx +
+                 ((fn.along + c_n) - (fs.along + c_s)) * inv_dy - src_y;
+        d_z = round_small(d_z, vs);
+        d_qx = round_small(d_qx, vs);
+        d_qy = round_small(d_qy, vs);
 
-      T d_z = (fe.mass - fw.mass) * inv_dx + (fn.mass - fs.mass) * inv_dy;
-      T d_qx = ((fe.along + c_e) - (fw.along + c_w)) * inv_dx +
-               (fn.cross - fs.cross) * inv_dy - src_x;
-      T d_qy = (fe.cross - fw.cross) * inv_dx +
-               ((fn.along + c_n) - (fs.along + c_s)) * inv_dy - src_y;
-      d_z = round_small(d_z, vs);
-      d_qx = round_small(d_qx, vs);
-      d_qy = round_small(d_qy, vs);
+        const bool stop = fe.stop_l || fw.stop_r || fn.stop_l || fs.stop_r;
+        const T qx_c = stop ? T(0) : qx_c0;
+        const T qy_c = stop ? T(0) : qy_c0;
+        T z_new, comp_new = T(0);
+        if (COMP) {
+          comp_add(zc, comp_c, -(dt * d_z), z_new, comp_new);
+        } else {
+          z_new = zc - dt * d_z;
+        }
+        T qx_new = qx_c - dt * d_qx;
+        T qy_new = qy_c - dt * d_qy;
 
-      const bool stop = fe.stop_l || fw.stop_r || fn.stop_l || fs.stop_r;
-      const T qx_c = stop ? T(0) : qx_c0;
-      const T qy_c = stop ? T(0) : qy_c0;
-      T z_new, comp_new = T(0);
-      if (COMP) {
-        comp_add(zc, comp_o, -(dt * d_z), z_new, comp_new);
-      } else {
-        z_new = zc - dt * d_z;
+        if (friction) {
+          implicit_friction(z_new, qx_new, qy_new, zbc, n_c,
+                            clamp_min(dt, vs), vs);
+        }
+
+        const T zmax_new =
+            ((z_new > zmax_c) && (zmax_c > T(-9990.0))) ? z_new : zmax_c;
+        const bool dry_new =
+            COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
+        z_new = dry_new ? zbc : z_new;
+
+        const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
+        const bool dry5 = dry_c && east_bit(dry_row, p.lane) &&
+                          west_bit(dry_row, p.lane) &&
+                          (next.z - next.zb < vs) && dry_s;
+        const bool keep = disabled || dry5 || (dt <= T(0));
+        if (!keep) {
+          z_o = z_new;
+          zmax_o = zmax_new;
+          qx_o = qx_new;
+          qy_o = qy_new;
+          if (COMP) comp_o = dry_new ? T(0) : comp_new;
+        }
       }
-      T qx_new = qx_c - dt * d_qx;
-      T qy_new = qy_c - dt * d_qy;
-
-      if (friction) {
-        implicit_friction(z_new, qx_new, qy_new, zbc, n[i],
-                          clamp_min(dt, vs), vs);
-      }
-
-      const T zmax_new =
-          ((z_new > zmax_c) && (zmax_c > T(-9990.0))) ? z_new : zmax_c;
-      const bool dry_new =
-          COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
-      z_new = dry_new ? zbc : z_new;
-
-      const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
-      const bool dry5 = (zc - zbc < vs) && (z_e - zb_e < vs) &&
-                        (z_w - zb_w < vs) && (z_n - zb_n < vs) &&
-                        (z_s - zb_s < vs);
-      const bool keep = disabled || dry5 || (dt <= T(0));
-      if (!keep) {
-        z_o = z_new;
-        zmax_o = zmax_new;
-        qx_o = qx_new;
-        qy_o = qy_new;
-        if (COMP) comp_o = dry_new ? T(0) : comp_new;
-      }
+      z_out[i] = z_o;
+      zmax_out[i] = zmax_o;
+      qx_out[i] = qx_o;
+      qy_out[i] = qy_o;
+      if (COMP) comp_out[i] = comp_o;
+      spd = nan_max(spd,
+                    cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
     }
-    z_out[i] = z_o;
-    zmax_out[i] = zmax_o;
-    qx_out[i] = qx_o;
-    qy_out[i] = qy_o;
-    if (COMP) comp_out[i] = comp_o;
-    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified);
+    fs = fn;
+    dry_s = dry_c;
+    cur = next;
   }
 
-  block_max_store<T, BX * BY>(spd, speeds);
+  block_max_store<T, MARCH_THREADS>(spd, speeds);
 }
+
+// K4's block: one thread per cell.
+constexpr int BX = 32;
+constexpr int BY = 8;
 
 // ops/inertial.py::_face_discharge for one face: "up" is its east (north)
 // side, "down" its west (south) side, manning the computing cell's n.
@@ -214,7 +266,6 @@ __global__ void __launch_bounds__(BX * BY)
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
                          int rows, int cols, T dx, T dy, T vs, T qs,
-                         bool /*friction: the drag is part of the scheme*/,
                          bool simplified) {
   using namespace swe;
   const int c = blockIdx.x * BX + threadIdx.x;
@@ -283,91 +334,116 @@ __global__ void __launch_bounds__(BX * BY)
   block_max_store<T, BX * BY>(spd, speeds);
 }
 
-enum Scheme { GODUNOV, INERTIAL };
-
-// ax, ay: the x and y spacing terms of the scheme's arithmetic, the
-// inverse spacings for K1 and the spacings for K4.
-template <int SCHEME, typename T, bool COMP>
-int launch(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
-           const T* n, const T* comp, T* z_out, T* zmax_out, T* qx_out,
-           T* qy_out, T* comp_out, T* speeds, const T* dt, int rows, int cols,
-           double ax, double ay, double vs, double qs, int friction,
-           int simplified, void* stream) {
-  const dim3 block(BX, BY);
-  const dim3 grid((cols + BX - 1) / BX, (rows + BY - 1) / BY);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (SCHEME == GODUNOV) {
-    godunov_step_kernel<T, COMP><<<grid, block, 0, s>>>(
-        z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, T(ax), T(ay), T(vs), T(qs),
-        friction != 0, simplified != 0);
-  } else {
-    inertial_step_kernel<T, COMP><<<grid, block, 0, s>>>(
-        z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, T(ax), T(ay), T(vs), T(qs),
-        friction != 0, simplified != 0);
+template <typename T, bool COMP>
+int launch_godunov(const T* z, const T* zmax, const T* qx, const T* qy,
+                   const T* zb, const T* n, const T* comp, T* z_out,
+                   T* zmax_out, T* qx_out, T* qy_out, T* comp_out, T* speeds,
+                   const T* dt, int rows, int cols, int chunk, int grid_x,
+                   int grid_y, double inv_dx, double inv_dy,
+                   double vs, double qs, int friction, int simplified,
+                   void* stream) {
+  if (!swe::march_geometry_ok(rows, cols, chunk, grid_x, grid_y)) {
+    return (int)cudaErrorInvalidValue;
   }
+  godunov_step_kernel<T, COMP>
+      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+         (cudaStream_t)stream>>>(
+          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
+          comp_out, speeds, dt, rows, cols, chunk, T(inv_dx),
+          T(inv_dy), T(vs), T(qs), friction != 0, simplified != 0);
   return (int)cudaGetLastError();
 }
 
-// float32; comp == nullptr selects the uncompensated instantiation.
-template <int SCHEME>
-int step_f32(const float* z, const float* zmax, const float* qx,
-             const float* qy, const float* zb, const float* n,
-             const float* comp, float* z_out, float* zmax_out, float* qx_out,
-             float* qy_out, float* comp_out, float* speeds, const float* dt,
-             int rows, int cols, double ax, double ay, double vs, double qs,
-             int friction, int simplified, void* stream) {
-  if (comp != nullptr) {
-    return launch<SCHEME, float, true>(
-        z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, ax, ay, vs, qs, friction,
-        simplified, stream);
-  }
-  return launch<SCHEME, float, false>(
-      z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, ax, ay, vs, qs, friction, simplified,
-      stream);
+template <typename T, bool COMP>
+int launch_inertial(const T* z, const T* zmax, const T* qx, const T* qy,
+                    const T* zb, const T* n, const T* comp, T* z_out,
+                    T* zmax_out, T* qx_out, T* qy_out, T* comp_out, T* speeds,
+                    const T* dt, int rows, int cols, double dx, double dy,
+                    double vs, double qs, int simplified, void* stream) {
+  const dim3 grid((cols + BX - 1) / BX, (rows + BY - 1) / BY);
+  inertial_step_kernel<T, COMP>
+      <<<grid, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
+          comp_out, speeds, dt, rows, cols, T(dx), T(dy), T(vs), T(qs),
+          simplified != 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Every entry point returns the CUDA error code of its launch
-// (0 = cudaSuccess).
+// (0 = cudaSuccess; cudaErrorInvalidValue for a geometry K1 cannot take).
+// The f32 entry points take comp == nullptr for the uncompensated
+// instantiation.
 extern "C" {
 
-// Number of per-block partial maxima either kernel writes for a grid.
-int stencil_step_partials(int rows, int cols) {
+// K1.  chunk, grid_x, grid_y: ops/kernels/geometry.py
+// march_geometry; speeds holds grid_x * grid_y partial maxima.
+int godunov_step_f32(const float* z, const float* zmax, const float* qx,
+                     const float* qy, const float* zb, const float* n,
+                     const float* comp, float* z_out, float* zmax_out,
+                     float* qx_out, float* qy_out, float* comp_out,
+                     float* speeds, const float* dt, int rows, int cols,
+                     int chunk, int grid_x, int grid_y,
+                     double inv_dx, double inv_dy, double vs, double qs,
+                     int friction, int simplified, void* stream) {
+  if (comp != nullptr) {
+    return launch_godunov<float, true>(
+        z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+        inv_dx, inv_dy, vs, qs, friction, simplified, stream);
+  }
+  return launch_godunov<float, false>(
+      z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, simplified, stream);
+}
+
+int godunov_step_f64(const double* z, const double* zmax, const double* qx,
+                     const double* qy, const double* zb, const double* n,
+                     double* z_out, double* zmax_out, double* qx_out,
+                     double* qy_out, double* speeds, const double* dt,
+                     int rows, int cols, int chunk, int grid_x, int grid_y,
+                     double inv_dx, double inv_dy, double vs,
+                     double qs, int friction, int simplified, void* stream) {
+  return launch_godunov<double, false>(
+      z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, simplified, stream);
+}
+
+// K4: the number of per-block partial maxima it writes for a grid.
+int inertial_step_partials(int rows, int cols) {
   return ((cols + BX - 1) / BX) * ((rows + BY - 1) / BY);
 }
 
-#define STENCIL_ENTRY_POINTS(NAME, SCHEME)                                     \
-  int NAME##_step_f32(const float* z, const float* zmax, const float* qx,     \
-                      const float* qy, const float* zb, const float* n,       \
-                      const float* comp, float* z_out, float* zmax_out,       \
-                      float* qx_out, float* qy_out, float* comp_out,          \
-                      float* speeds, const float* dt, int rows, int cols,     \
-                      double ax, double ay, double vs, double qs,             \
-                      int friction, int simplified, void* stream) {           \
-    return step_f32<SCHEME>(z, zmax, qx, qy, zb, n, comp, z_out, zmax_out,    \
-                            qx_out, qy_out, comp_out, speeds, dt, rows, cols, \
-                            ax, ay, vs, qs, friction, simplified, stream);    \
-  }                                                                           \
-  int NAME##_step_f64(const double* z, const double* zmax, const double* qx,  \
-                      const double* qy, const double* zb, const double* n,    \
-                      double* z_out, double* zmax_out, double* qx_out,        \
-                      double* qy_out, double* speeds, const double* dt,       \
-                      int rows, int cols, double ax, double ay, double vs,    \
-                      double qs, int friction, int simplified,                \
-                      void* stream) {                                         \
-    return launch<SCHEME, double, false>(                                     \
-        z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,     \
-        nullptr, speeds, dt, rows, cols, ax, ay, vs, qs, friction,            \
-        simplified, stream);                                                  \
+// K4.  dx, dy: the spacings (the scheme divides by them).
+int inertial_step_f32(const float* z, const float* zmax, const float* qx,
+                      const float* qy, const float* zb, const float* n,
+                      const float* comp, float* z_out, float* zmax_out,
+                      float* qx_out, float* qy_out, float* comp_out,
+                      float* speeds, const float* dt, int rows, int cols,
+                      double dx, double dy, double vs, double qs,
+                      int simplified, void* stream) {
+  if (comp != nullptr) {
+    return launch_inertial<float, true>(
+        z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
+        comp_out, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
   }
+  return launch_inertial<float, false>(
+      z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
+}
 
-STENCIL_ENTRY_POINTS(godunov, GODUNOV)
-STENCIL_ENTRY_POINTS(inertial, INERTIAL)
-#undef STENCIL_ENTRY_POINTS
+int inertial_step_f64(const double* z, const double* zmax, const double* qx,
+                      const double* qy, const double* zb, const double* n,
+                      double* z_out, double* zmax_out, double* qx_out,
+                      double* qy_out, double* speeds, const double* dt,
+                      int rows, int cols, double dx, double dy, double vs,
+                      double qs, int simplified, void* stream) {
+  return launch_inertial<double, false>(
+      z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
+      nullptr, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
+}
 
 }  // extern "C"

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ...state import FlowState
 from ..timestep import max_wave_speed
 
 
@@ -44,6 +45,34 @@ def check_planes(who, tensors, dt, comp):
     if comp is not None and ref.dtype != torch.float32:
         raise ValueError(f"{who}: the comp plane is a float32 (compensated) "
                          "option")
+
+
+def launch_step(lib, name, who, inputs, state, comp, dt, n_partials, args):
+    """Launch the step kernel ``name``_f32 or ``name``_f64 of ``lib``: it
+    reads the planes ``inputs`` (pointers; None where the kernel takes no
+    plane) and, in f32, ``comp``; writes the four planes of the new state,
+    the new comp and ``n_partials`` partial CFL maxima; and takes
+    ``args`` after dt.  Returns (new_state, max_wave_speed[, comp_new])."""
+    out = [torch.empty_like(state.z) for _ in range(4)]
+    comp_out = torch.empty_like(comp) if comp is not None else None
+    speeds = torch.empty(n_partials, dtype=state.z.dtype,
+                         device=state.z.device)
+    optr = [t.data_ptr() for t in out]
+    with torch.cuda.device(state.z.device):
+        tail = (speeds.data_ptr(), dt.data_ptr(), *args,
+                torch.cuda.current_stream().cuda_stream)
+        if state.z.dtype == torch.float32:
+            cptr = comp.data_ptr() if comp is not None else None
+            coptr = comp_out.data_ptr() if comp is not None else None
+            err = getattr(lib, f"{name}_f32")(*inputs, cptr, *optr, coptr,
+                                              *tail)
+        else:
+            err = getattr(lib, f"{name}_f64")(*inputs, *optr, *tail)
+    raise_on(err, who)
+    new = FlowState(*out)
+    if comp is None:
+        return new, torch.amax(speeds)
+    return new, torch.amax(speeds), comp_out
 
 
 def plain_step_result(out, comp, static, params, simplified_speed):

@@ -7,7 +7,8 @@ launch count:
 
 * ``muscl_predict``            K2, variant "split12": base + slopes, 12 planes;
 * ``muscl_predict_base``       K5a-P, variant "recompute": the 4 base planes;
-* ``muscl_correct``            K3: corrector on the 12 planes;
+* ``muscl_correct``            K3: corrector on the 12 planes, row-marching
+  (its launch geometry comes from ``geometry.march_geometry``);
 * ``muscl_correct_recompute``  K5a-C: corrector that rebuilds the slopes;
 * ``muscl_fused``              K5b: the whole step in one kernel, which
   rebuilds the slopes and the half-step base state of five cells per cell
@@ -39,21 +40,25 @@ from ..muscl import (FaceExtrap, faces_from_base_slopes, interior_slopes,
                      muscl_step, with_ring)
 from ..timestep import max_wave_speed
 from . import build
-from .common import check_planes, on_card, plain_step_result, raise_on
+from .common import (check_planes, launch_step, on_card,
+                     plain_step_result, raise_on)
+from .geometry import march_geometry
 
 N_PRED = 12        # base(4) + sx(4) + sy(4)
 RING = 2           # MUSCL static ring width
 VARIANTS = ("split12", "recompute")
-# The corrector kernel's source of the predicted base planes and slopes
-# (csrc/muscl_split.cu CorrectMode).
-STORED, RECOMPUTE, FUSED = 0, 1, 2
+# The rebuilding corrector's source of the predicted base planes and
+# slopes (csrc/muscl_split.cu CorrectMode).
+RECOMPUTE, FUSED = 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
-_CORRECT_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
-_CORRECT_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F32_ARGS = [_P] * 15 + [_I] * 5 + [_D] * 4 + [_I, _P]
+_CORRECT_F64_ARGS = [_P] * 13 + [_I] * 5 + [_D] * 4 + [_I, _P]
+_REBUILD_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
+_REBUILD_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
 
 
 @functools.cache
@@ -61,12 +66,14 @@ def _lib():
     """Build (first call only) and load the MUSCL kernels, with every C
     signature typed: an untyped pointer would be cut to 32 bits."""
     lib = build.library("muscl_split", ["muscl_split.cu"],
-                        ["muscl_common.cuh", "swe_common.cuh"])
+                        ["march.cuh", "muscl_common.cuh", "swe_common.cuh"])
     for name, args in (("muscl_predict_f32", _PREDICT_ARGS),
                        ("muscl_predict_f64", _PREDICT_ARGS),
                        ("muscl_correct_f32", _CORRECT_F32_ARGS),
                        ("muscl_correct_f64", _CORRECT_F64_ARGS),
-                       ("muscl_correct_partials", [_I, _I])):
+                       ("muscl_rebuild_f32", _REBUILD_F32_ARGS),
+                       ("muscl_rebuild_f64", _REBUILD_F64_ARGS),
+                       ("muscl_rebuild_partials", [_I, _I])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = _I
@@ -156,52 +163,49 @@ def _predict_cuda(state, static, dt, params, store_slopes):
     return pred
 
 
-_CORRECTORS = {STORED: "muscl_correct", RECOMPUTE: "muscl_correct_recompute",
-               FUSED: "muscl_fused"}
-
-
-def _correct_cuda(state, static, pred, dt, params, comp, mode):
-    """Launch the corrector kernel: K3 (``mode`` STORED, 12 predictor
-    planes), K5a-C (RECOMPUTE, 4 base planes) or K5b (FUSED, ``pred`` is
-    None: the kernel also rebuilds the base planes)."""
-    who = _CORRECTORS[mode]
-    planes = [*state, *static] + ([comp] if comp is not None else [])
-    check_planes(who, planes, dt, comp)
-    if mode != FUSED:
-        want = (4 if mode == RECOMPUTE else N_PRED, *state.z.shape)
+def _check_step(who, state, static, pred, n_pred, dt, comp):
+    """check_planes for a corrector, and ``pred`` (unless ``n_pred`` is 0:
+    K5b rebuilds its predictor) one contiguous (n_pred, rows, cols) tensor
+    beside the state; returns the planes' pointers, pred's last."""
+    check_planes(who, [*state, *static] + ([comp] if comp is not None
+                                           else []), dt, comp)
+    if n_pred:
+        want = (n_pred, *state.z.shape)
         if (tuple(pred.shape) != want or pred.dtype != state.z.dtype
                 or pred.device != state.z.device
                 or not pred.is_contiguous()):
             raise ValueError(f"{who}: the predictor planes must be one "
                              f"contiguous {want} tensor beside the state")
-    rows, cols = state.z.shape
+    return ([t.data_ptr() for t in (*state, *static)]
+            + [pred.data_ptr() if n_pred else None])
+
+
+def _spacing(params):
+    return (1.0 / params.dx, 1.0 / params.dy, params.very_small,
+            params.quite_small, int(params.friction))
+
+
+def _correct_cuda(state, static, pred, dt, params, comp, chunk=None):
+    """Launch K3 on the row-marching geometry of its grid, ``chunk`` rows
+    per block unless ``geometry.march_geometry`` picks them."""
+    inputs = _check_step("muscl_correct", state, static, pred, N_PRED, dt,
+                         comp)
+    geom = march_geometry(*state.z.shape, chunk=chunk)
+    return launch_step(_lib(), "muscl_correct", "muscl_correct", inputs,
+                       state, comp, dt, geom.partials,
+                       (*state.z.shape, *geom.args(), *_spacing(params)))
+
+
+def _rebuild_cuda(who, mode, state, static, pred, dt, params, comp):
+    """Launch the rebuilding corrector on its 32x8 grid: K5a-C (``mode``
+    RECOMPUTE, K5a-P's 4 base planes) or K5b (FUSED, ``pred`` None: it
+    rebuilds the base planes too)."""
+    inputs = _check_step(who, state, static, pred,
+                         4 if mode == RECOMPUTE else 0, dt, comp)
     lib = _lib()
-    out = [torch.empty_like(state.z) for _ in range(4)]
-    comp_out = torch.empty_like(comp) if comp is not None else None
-    speeds = torch.empty(lib.muscl_correct_partials(rows, cols),
-                         dtype=state.z.dtype, device=state.z.device)
-    ptr = [t.data_ptr() for t in (*state, *static)]
-    ptr.append(pred.data_ptr() if pred is not None else None)
-    optr = [t.data_ptr() for t in out]
-    with torch.cuda.device(state.z.device):
-        common = (rows, cols, 1.0 / params.dx, 1.0 / params.dy,
-                  params.very_small, params.quite_small,
-                  int(params.friction), mode,
-                  torch.cuda.current_stream().cuda_stream)
-        if state.z.dtype == torch.float32:
-            cptr = comp.data_ptr() if comp is not None else None
-            coptr = comp_out.data_ptr() if comp is not None else None
-            err = lib.muscl_correct_f32(*ptr, cptr, *optr, coptr,
-                                        speeds.data_ptr(), dt.data_ptr(),
-                                        *common)
-        else:
-            err = lib.muscl_correct_f64(*ptr, *optr, speeds.data_ptr(),
-                                        dt.data_ptr(), *common)
-    raise_on(err, who)
-    new = FlowState(*out)
-    if comp is None:
-        return new, torch.amax(speeds)
-    return new, torch.amax(speeds), comp_out
+    return launch_step(lib, "muscl_rebuild", who, inputs, state, comp, dt,
+                       lib.muscl_rebuild_partials(*state.z.shape),
+                       (*state.z.shape, *_spacing(params), mode))
 
 
 def muscl_predict(state: FlowState, static, dt, params: SchemeParams):
@@ -230,7 +234,7 @@ def muscl_correct(state: FlowState, static, pred, dt, params: SchemeParams,
     if not on_card("muscl_correct", state):
         return muscl_correct_plain(state, static, pred, dt, params,
                                    comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp, STORED)
+    out = _correct_cuda(state, static, pred, dt, params, comp)
     muscl_correct.launches += 1
     return out
 
@@ -242,7 +246,8 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
     if not on_card("muscl_correct_recompute", state):
         return muscl_correct_plain(state, static, pred, dt, params,
                                    comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp, RECOMPUTE)
+    out = _rebuild_cuda("muscl_correct_recompute", RECOMPUTE, state,
+                        static, pred, dt, params, comp)
     muscl_correct_recompute.launches += 1
     return out
 
@@ -257,7 +262,8 @@ def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
                          "simplified CFL speed")
     if not on_card("muscl_fused", state):
         return muscl_step_plain(state, static, dt, params, comp=comp)
-    out = _correct_cuda(state, static, None, dt, params, comp, FUSED)
+    out = _rebuild_cuda("muscl_fused", FUSED, state, static, None, dt,
+                        params, comp)
     muscl_fused.launches += 1
     return out
 

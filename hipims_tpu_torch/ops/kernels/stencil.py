@@ -4,7 +4,9 @@
 any scheme.  Each scheme has its own kernel wrapper, with its own launch
 count and its own plain PyTorch version:
 
-* ``godunov_fused``   K1 (``csrc/stencil.cu``), plain ``stencil_step_plain``;
+* ``godunov_fused``   K1 (``csrc/stencil.cu``, row-marching: its launch
+  geometry comes from ``geometry.march_geometry``), plain
+  ``stencil_step_plain``;
 * ``inertial_fused``  K4 (``csrc/stencil.cu``), plain ``inertial_step_plain``;
 * ``muscl_fused``     K5b (``csrc/muscl_split.cu``, wrapper in
   ``muscl_split.py``), plain ``muscl_step_plain``.
@@ -19,72 +21,74 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import torch
-
 from ...state import FlowState
 from ..godunov import SchemeParams, godunov_step
 from ..inertial import inertial_step
 from . import build
-from .common import check_planes, on_card, plain_step_result, raise_on
+from .common import check_planes, launch_step, on_card, plain_step_result
+from .geometry import march_geometry
 from .muscl_split import muscl_fused, muscl_step_plain
 
 _P = ctypes.c_void_p
-_F32_ARGS = [_P] * 14 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_double] * 4 \
-    + [ctypes.c_int, ctypes.c_int, _P]
-_F64_ARGS = [_P] * 12 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_double] * 4 \
-    + [ctypes.c_int, ctypes.c_int, _P]
+_I = ctypes.c_int
+_D = ctypes.c_double
+# (f32, f64) signatures: K1 takes the march geometry (chunk, grid) and
+# friction, K4 neither.
+_ARGS = {
+    "godunov": ([_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _I, _P],
+                [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]),
+    "inertial": ([_P] * 14 + [_I] * 2 + [_D] * 4 + [_I, _P],
+                 [_P] * 12 + [_I] * 2 + [_D] * 4 + [_I, _P]),
+}
 
 
 @functools.cache
 def _lib():
     """Build (first call only) and load K1 and K4, with every C signature
     typed: an untyped pointer would be cut to 32 bits."""
-    lib = build.library("stencil", ["stencil.cu"], ["swe_common.cuh"])
-    for scheme in ("godunov", "inertial"):
-        for suffix, args in (("f32", _F32_ARGS), ("f64", _F64_ARGS)):
+    lib = build.library("stencil", ["stencil.cu"],
+                        ["march.cuh", "swe_common.cuh"])
+    for scheme, sigs in _ARGS.items():
+        for suffix, args in zip(("f32", "f64"), sigs):
             fn = getattr(lib, f"{scheme}_step_{suffix}")
             fn.argtypes = args
-            fn.restype = ctypes.c_int
-    lib.stencil_step_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.stencil_step_partials.restype = ctypes.c_int
+            fn.restype = _I
+    lib.inertial_step_partials.argtypes = [_I, _I]
+    lib.inertial_step_partials.restype = _I
     return lib
 
 
-def _launch_cuda(scheme, state, static, dt, params, comp, simplified_speed):
-    """Launch K1 (``scheme`` "godunov") or K4 ("inertial")."""
-    planes = [*state, *static] + ([comp] if comp is not None else [])
-    check_planes(f"{scheme} step", planes, dt, comp)
-    rows, cols = state.z.shape
+def _planes(state, static, comp):
+    return [*state, *static] + ([comp] if comp is not None else [])
+
+
+def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
+                  chunk=None):
+    """Launch K1 on the row-marching geometry of its grid, ``chunk`` rows
+    per block unless ``geometry.march_geometry`` picks them."""
+    check_planes("godunov step", _planes(state, static, comp), dt, comp)
+    geom = march_geometry(*state.z.shape, chunk=chunk)
+    # K1 multiplies by the inverse spacings.
+    args = (*state.z.shape, *geom.args(), 1.0 / params.dx, 1.0 / params.dy,
+            params.very_small, params.quite_small, int(params.friction),
+            int(simplified_speed))
+    return launch_step(_lib(), "godunov_step", "godunov step",
+                       [t.data_ptr() for t in (*state, *static)], state,
+                       comp, dt, geom.partials, args)
+
+
+def _inertial_cuda(state, static, dt, params, comp, simplified_speed):
+    """Launch K4 on its 32x8 grid."""
+    check_planes("inertial step", _planes(state, static, comp), dt, comp)
     lib = _lib()
-    out = [torch.empty_like(state.z) for _ in range(4)]
-    comp_out = torch.empty_like(comp) if comp is not None else None
-    speeds = torch.empty(lib.stencil_step_partials(rows, cols),
-                         dtype=state.z.dtype, device=state.z.device)
-    # K1 multiplies by the inverse spacings; K4 divides by the spacings,
-    # as the reference's inertial scheme does.
-    spacing = ((params.dx, params.dy) if scheme == "inertial"
-               else (1.0 / params.dx, 1.0 / params.dy))
-    with torch.cuda.device(state.z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        common = (rows, cols, *spacing, params.very_small,
-                  params.quite_small, int(params.friction),
-                  int(simplified_speed), stream)
-        ptr = [t.data_ptr() for t in planes[:6]]
-        optr = [t.data_ptr() for t in out]
-        if state.z.dtype == torch.float32:
-            cptr = comp.data_ptr() if comp is not None else None
-            coptr = comp_out.data_ptr() if comp is not None else None
-            err = getattr(lib, f"{scheme}_step_f32")(
-                *ptr, cptr, *optr, coptr, speeds.data_ptr(), dt.data_ptr(),
-                *common)
-        else:
-            err = getattr(lib, f"{scheme}_step_f64")(
-                *ptr, *optr, speeds.data_ptr(), dt.data_ptr(), *common)
-    raise_on(err, f"{scheme} step")
-    new = FlowState(*out)
-    if comp is None:
-        return new, torch.amax(speeds)
-    return new, torch.amax(speeds), comp_out
+    # K4 divides by the spacings, as the reference's inertial scheme does;
+    # its friction is part of the scheme.
+    args = (*state.z.shape, params.dx, params.dy, params.very_small,
+            params.quite_small, int(simplified_speed))
+    return launch_step(lib, "inertial_step", "inertial step",
+                       [t.data_ptr() for t in (*state, *static)], state,
+                       comp, dt, lib.inertial_step_partials(*state.z.shape),
+                       args)
 
 
 def stencil_step_plain(state: FlowState, static, dt, params: SchemeParams,
@@ -111,8 +115,7 @@ def godunov_fused(state: FlowState, static, dt, params: SchemeParams,
     if not on_card("godunov_fused", state):
         return stencil_step_plain(state, static, dt, params, comp=comp,
                                   simplified_speed=simplified_speed)
-    out = _launch_cuda("godunov", state, static, dt, params, comp,
-                       simplified_speed)
+    out = _godunov_cuda(state, static, dt, params, comp, simplified_speed)
     godunov_fused.launches += 1
     return out
 
@@ -123,8 +126,7 @@ def inertial_fused(state: FlowState, static, dt, params: SchemeParams,
     if not on_card("inertial_fused", state):
         return inertial_step_plain(state, static, dt, params, comp=comp,
                                    simplified_speed=simplified_speed)
-    out = _launch_cuda("inertial", state, static, dt, params, comp,
-                       simplified_speed)
+    out = _inertial_cuda(state, static, dt, params, comp, simplified_speed)
     inertial_fused.launches += 1
     return out
 

@@ -124,6 +124,14 @@ def test_kernel_bounds():
     for mode, want in (("f32", 0.108), ("f32c", 0.130), ("f64", 0.216)):
         ms, by = chip_smoke.kernel_bound("inertial_fused", mode, cells, 0.5)
         assert (round(ms, 3), by) == (want, "bytes")
+    # K1 and K3, counted at two face solves per cell, stay bound by their
+    # bytes: 48 and 96 B/cell in f32c.
+    for name, want in (("godunov_fused", 0.130), ("muscl_correct", 0.259)):
+        for mode in ("f32", "f32c", "f64"):
+            assert chip_smoke.kernel_bound(name, mode, cells, 1.0)[1] == \
+                "bytes"
+        ms, _ = chip_smoke.kernel_bound(name, "f32c", cells, 1.0)
+        assert round(ms, 3) == want
     # K5b's arithmetic grows with the share of second-order cells.
     lo = chip_smoke.kernel_bound("muscl_fused", "f32", cells, 0.0)
     hi = chip_smoke.kernel_bound("muscl_fused", "f32", cells, 1.0)

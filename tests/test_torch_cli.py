@@ -118,6 +118,35 @@ def test_profile_batch_without_cuda_fails_cleanly(tmp_path, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
+def test_kernel_ab_without_cuda_fails_cleanly(tmp_path, capsys):
+    """The two-tree kernel A/B needs the card."""
+    import kernel_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert kernel_ab.main(["--other", str(tmp_path)]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_kernel_ab_counts_sass():
+    """Instructions and MUFU per kernel of a cuobjdump -sass listing; the
+    encoding lines and headers are not instructions."""
+    from kernel_ab import count_sass
+
+    dump = """
+\tcode for sm_90a
+\t\tFunction : _Z4stepPf
+\t.headerflags    @"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   MUFU.RSQ R3, R2 ;        /* 0x0000000200037308 */
+        /*10000*/              @P0 BRA 0x100 ;              /* 0x0000000000000947 */
+\t\tFunction : _Z4donev
+        /*0000*/                   EXIT ;                   /* 0x000000000000794d */
+"""
+    assert count_sass(dump) == {"_Z4stepPf": (3, 1), "_Z4donev": (1, 0)}
+
+
 @pytest.mark.parametrize("fmt", ["asc", "tif"])
 def test_raster_write_byte_equal(tmp_path, fmt):
     rng = np.random.default_rng(0)

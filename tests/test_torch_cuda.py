@@ -10,7 +10,8 @@ machine that has only PyTorch:
 inputs are the adversarial wet/dry random domain of chip_smoke.py, made
 with numpy from a seed.  Tolerances: float64 to 1e-12 (bit-equal is
 expected under --fmad=false), float32 to rtol 1e-5 / atol 1e-6, and the
-true surface z + comp to 1e-6.
+true surface z + comp to 1e-6.  At the ragged shapes every kernel is held
+to its plain version bit for bit (torch.equal).
 """
 
 import numpy as np
@@ -25,6 +26,10 @@ from hipims_tpu_torch.state import DomainStatic, FlowState
 
 MODES = ["f64", "f32", "f32c"]
 PARAMS = SchemeParams(2.0, 2.0)
+# Ragged shapes: all ring for K3 (3x3), one strip of the row-marching
+# kernels or less, several chunks, and (65, 121), one row past a chunk and
+# one column past a strip (tests/test_torch_geometry.py).
+RAGGED = [(3, 3), (5, 5), (4, 37), (33, 65), (130, 97), (65, 121)]
 
 
 def _inputs(mode, rows=32, cols=128):
@@ -151,3 +156,62 @@ def test_muscl_kernels_reject_bad_inputs():
                          PARAMS)
     with pytest.raises(ValueError, match="dt must be"):
         ms.muscl_predict(state, static, dt.double(), PARAMS)
+
+
+def _plain_and_kernel(name, state, static, comp, dt):
+    """(kernel result, plain result) of kernel ``name`` on the inputs; the
+    correctors take the plain predictor's planes."""
+    pred = ms.muscl_predict_plain(state, static, dt, PARAMS)
+    base = pred[:4].contiguous()
+    return {
+        "K1": lambda: (
+            st.godunov_fused(state, static, dt, PARAMS, comp=comp),
+            st.stencil_step_plain(state, static, dt, PARAMS, comp=comp)),
+        "K3": lambda: (
+            ms.muscl_correct(state, static, pred, dt, PARAMS, comp=comp),
+            ms.muscl_correct_plain(state, static, pred, dt, PARAMS,
+                                   comp=comp)),
+        "K4": lambda: (
+            st.inertial_fused(state, static, dt, PARAMS, comp=comp),
+            st.inertial_step_plain(state, static, dt, PARAMS, comp=comp)),
+        "K5a-C": lambda: (
+            ms.muscl_correct_recompute(state, static, base, dt, PARAMS,
+                                       comp=comp),
+            ms.muscl_correct_plain(state, static, base, dt, PARAMS,
+                                   comp=comp)),
+        "K5b": lambda: (
+            st.muscl_fused(state, static, dt, PARAMS, comp=comp),
+            st.muscl_step_plain(state, static, dt, PARAMS, comp=comp)),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["K1", "K3", "K4", "K5a-C", "K5b"])
+def test_kernels_bit_equal_at_ragged_shapes(name, mode, shape):
+    """The row-marching K1 and K3, and K4, K5a-C and K5b on their own
+    launch paths, equal their plain versions bit for bit: fields, max
+    speed and comp."""
+    state, static, comp, dt = _inputs(mode, *shape)
+    got, want = _plain_and_kernel(name, state, static, comp, dt)
+    for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["K1", "K3"])
+def test_nan_reaches_the_max_speed(name, mode):
+    """A NaN Manning n in one wet interior cell makes that cell's
+    discharge NaN through friction while its depth stays finite; the
+    kernel's max speed is NaN, as the plain version's."""
+    state, static, comp, dt = _inputs(mode, 33, 65)
+    depth = (state.z - static.zb).cpu().numpy()
+    wet = np.argwhere(depth[2:-2, 2:-2] > 0.5) + 2
+    r, c = (int(v) for v in wet[len(wet) // 2])
+    manning = static.manning.clone()
+    manning[r, c] = float("nan")
+    static = DomainStatic(static.zb, manning)
+    got, want = _plain_and_kernel(name, state, static, comp, dt)
+    assert torch.isnan(want[1]) and torch.isnan(got[1])
