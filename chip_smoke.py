@@ -12,14 +12,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    parallel: K1 and K4 (csrc/stencil.cu), and the MUSCL kernels K2, K3,
    K5a-P, K5a-C and K5b (csrc/muscl_split.cu);
 3. K1 against its plain PyTorch version on the card, f64 / f32 / f32c, at
-   a 32x128 random case, 1408x1408, the ragged 1297x1441 (one row past a
-   chunk and one column past a strip of the row-marching kernels) and
-   2944x3072 (9.04 M cells), with per-step times of both;
+   a 32x128 random case, 1408x1408, the ragged 1297x1681 (one row past a
+   chunk and one column past a strip of the row-marching kernels, at
+   either halo width) and 2944x3072 (9.04 M cells), with per-step times of
+   both;
 3b. the same for the four split MUSCL kernels (all 12 predictor planes,
    then the corrector's fields), and the split12 chain (K2 -> K3) against
    the recompute chain (K5a-P -> K5a-C);
 3c. the same for K4 (partial-inertial) and K5b (the fused MUSCL step),
-   and K5b against the split12 chain;
+   K4 also with one Manning value over the domain (where neighbours share
+   a face's drag) and with one per 5x7 patch, and K5b against the split12
+   chain;
 4. the main path of the first slice: a Glasgow-class pluvial model
    (Godunov, 38.4 mm/h rain for the first hour plus a 6 mm/h loss, closed
    edges, XML precision "double" = compensated f32) at Thamesmead-class
@@ -131,13 +134,16 @@ BREACH_BOUNDARY = """<timeseries type="cell" name="Breach" value="discharge"
                       source="hydrograph.csv" mapFile="breach.csv"
                       depthValue="ignore" dischargeValue="total" />"""
 RAIN_MM_H, LOSS_MM_H = 38.4, 6.0
+# The one Manning value of phase 3c's second K4 case (the pluvial model's).
+ONE_MANNING = 0.04
 BREACH_M3_S = 400.0
 
 # Kernel against plain cases: (rows, cols, kernel reps, plain reps); the
-# ragged 1297x1441 ends one row past a chunk and one column past a strip of
-# the row-marching kernels K1 and K3 (tests/test_torch_geometry.py); the
-# last is the main paths' grid, Thamesmead-class 9.04 M cells.
-CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (1297, 1441, 10, 2),
+# ragged 1297x1681 ends one row past a chunk and one column past a strip of
+# the row-marching kernels of either halo width: K1, K3 and K4 (120
+# columns) and K5a-C (112) (tests/test_torch_geometry.py); the last is the
+# main paths' grid, Thamesmead-class 9.04 M cells.
+CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (1297, 1681, 10, 2),
          (2944, 3072, 10, 2))
 
 
@@ -223,6 +229,14 @@ def random_domain(seed, rows, cols, dry_fraction=0.4,
     return z, zmax, qx, qy, zb, manning
 
 
+def patch_manning(rows, cols, patch_rows, patch_cols, seed=2):
+    """A Manning plane with one value per patch of patch_rows x patch_cols
+    cells (land-use patches), drawn from random_domain's range."""
+    patch = np.random.default_rng(seed).uniform(
+        0.01, 0.06, (rows // patch_rows + 1, cols // patch_cols + 1))
+    return np.ascontiguousarray(np.repeat(np.repeat(
+        patch, patch_rows, 0), patch_cols, 1)[:rows, :cols])
+
 def _excess(got, want, rtol, atol):
     """max(|got - want| - (atol + rtol |want|)) and max |got - want|, in
     float64; the first is <= 0 when every element is within tolerance."""
@@ -297,21 +311,26 @@ def phase_fused_vs_plain(torch, device, schemes, label):
     """Phases 3 and 3c: the fused step kernel of each scheme in
     ``schemes`` (K1 "godunov", K4 "inertial", K5b "muscl-hancock")
     against its plain version on the card and on the same inputs, with
-    per-step times of both.  With "muscl-hancock", K5b is also held
-    against the split12 chain (K2 -> K3) at the JAX package's bar for two
-    MUSCL paths (rel 1e-13); bit-equal is expected.  Returns the largest
+    per-step times of both.  With "inertial", K4 is also held to its plain
+    version with one Manning value over the domain (ONE_MANNING), where
+    each face's drag is shared by its two cells, and with one value per
+    5x7 patch (patch_manning).  With
+    "muscl-hancock", K5b is also held against the split12 chain (K2 -> K3)
+    at the JAX package's bar for two MUSCL paths (rel 1e-13); bit-equal is
+    expected.  Returns the largest
     |diff| per kernel, the times per (kernel, rows, cols, mode) and the
     largest K5b-split12 |diff|."""
     from hipims_tpu_torch.ops.godunov import SchemeParams
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
     from hipims_tpu_torch.ops.kernels import stencil as st
+    from hipims_tpu_torch.state import DomainStatic
 
     params = SchemeParams(dx=2.0, dy=2.0)
     kernels = {s: dict(zip(("godunov", "inertial", "muscl-hancock"),
                            st.KERNELS))[s].__name__ for s in schemes}
     worst = {k: 0.0 for k in kernels.values()}
     times = {}
-    split_diff = 0.0
+    split_diff = layout_diff = 0.0
     for rows, cols, reps, plain_reps in CASES:
         arrs = random_domain(0, rows, cols)
         for mode in ("f64", "f32", "f32c"):
@@ -333,6 +352,26 @@ def phase_fused_vs_plain(torch, device, schemes, label):
                 worst[name] = max(worst[name], _agree(
                     f"{name} disagrees with the plain version: "
                     f"{rows}x{cols}", mode, _step_pairs(got, want)))
+                if scheme == "inertial":
+                    # One Manning value, where neighbours share each face's
+                    # drag, and one per 5x7 patch, where only cells of one
+                    # patch do: both branches of K4 in one warp.
+                    for manning in (np.full((rows, cols), ONE_MANNING),
+                                    patch_manning(rows, cols, 5, 7)):
+                        layout = DomainStatic(static.zb, torch.as_tensor(
+                            manning, device=device).to(static.zb.dtype))
+                        got = st.stencil_step(scheme, state, layout, dt,
+                                              params, comp=comp,
+                                              simplified_speed=True)
+                        want = st.PLAIN[scheme](state, layout, dt, params,
+                                                comp=comp,
+                                                simplified_speed=True)
+                        torch.cuda.synchronize()
+                        layout_diff = max(layout_diff, _agree(
+                            f"{name} with shared Manning values disagrees "
+                            f"with the plain version: {rows}x{cols}", mode,
+                            _step_pairs(got, want)))
+                    worst[name] = max(worst[name], layout_diff)
                 if scheme == "muscl-hancock":
                     split = ms.muscl_step_split(state, static, dt, params,
                                                 "split12", comp)
@@ -350,6 +389,9 @@ def phase_fused_vs_plain(torch, device, schemes, label):
             print(f"phase {label}: fused steps vs plain {rows}x{cols} {mode}: "
                   "agree (max|diff| so far "
                   + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+                  + (f"; K4 with one Manning value and 5x7 patches "
+                     f"{layout_diff:.3e}"
+                     if "inertial" in kernels else "")
                   + (f"; K5b vs split12 {split_diff:.3e}"
                      if "muscl-hancock" in kernels else "")
                   + f"); per step kernel / plain ms: {per_step}", flush=True)
@@ -631,12 +673,12 @@ def _main_path_line(label, rows, cols, duration, res, smi):
 # comp plane read and written in f32c where the kernel takes it.
 # Operations: estimates, counted by hand from the CUDA sources (not from
 # the SASS), one per add, subtract, multiply, divide, min/max, compare,
-# sqrt, exp or log, rounded to tens: ``fixed`` for every cell (K1 and K3
-# at two face solves per cell, ~120 operations each, the work the step
-# needs; their earlier design solved four), and
-# ``second`` for each second-order predictor evaluation (predict_cell, or
-# a rebuilt slope in K5a-C), of which a cell makes ``evals`` on its
-# neighbourhood; first-order cells skip that work.  Over PEAK_OPS_PER_S,
+# sqrt, exp or log, rounded to tens: ``fixed`` for every cell (K1, K3 and
+# K5a-C at two face solves per cell, ~120 operations each, the work the
+# step needs; their first designs solved four), and ``second`` for each
+# second-order predictor evaluation (predict_cell, or a rebuilt slope
+# vector in K5a-C: the cell's own sx and sy), of which a cell makes
+# ``evals``; first-order cells skip that work.  Over PEAK_OPS_PER_S,
 # which counts an FMA as two operations, the time is a loose lower bound:
 # the kernels are built with --fmad=false, so each add and multiply
 # issues alone, and a divide, sqrt, exp or log takes several
@@ -649,7 +691,7 @@ KERNEL_COST = {
     "muscl_predict": (5, 12, False, 10, 180, 1),
     "muscl_predict_base": (5, 4, False, 10, 180, 1),
     "muscl_correct": (18, 4, True, 420, 0, 0),
-    "muscl_correct_recompute": (10, 4, True, 540, 30, 6),
+    "muscl_correct_recompute": (10, 4, True, 420, 30, 2),
 }
 
 

@@ -1,18 +1,22 @@
 // Launch geometry and lane-to-lane exchange of the row-marching kernels:
-// the Godunov step K1 (stencil.cu) and the split12 MUSCL corrector K3
+// the Godunov step K1 and the partial-inertial step K4 (stencil.cu), and
+// the MUSCL corrector in its two forms, K3 (split12) and K5a-C (recompute)
 // (muscl_split.cu).
 //
-// A block is MARCH_WARPS warps side by side.  Each warp owns a strip of
-// LANE_COLS = 30 columns and loads 32: lanes 0 and 31 are halo lanes that
-// load the column just west and just east of the strip and write nothing.
-// So a warp needs no other warp's data, its x faces move between lanes by
-// shuffles, and the march holds no __syncthreads.  The block owns
-// STRIP = LANE_COLS * MARCH_WARPS columns and marches down ``chunk`` rows,
+// A block is MARCH_WARPS warps side by side.  Each warp loads 32 columns
+// and owns the lane_cols(HALO) = 32 - 2 HALO in the middle: the HALO lanes
+// on either side load the columns just west and just east of the strip and
+// write nothing.  So a warp needs no other warp's data, its x faces move
+// between lanes by shuffles, and the march holds no __syncthreads.  K1, K3
+// and K4 take one halo lane (30 owned columns); K5a-C takes two (28), since
+// its first owned lane's west face needs the slope of the column west of
+// it, which needs one column more.  The block owns strip(HALO) =
+// lane_cols(HALO) * MARCH_WARPS columns and marches down ``chunk`` rows,
 // keeping each row's north face as the next row's south face.  The Python
-// function hipims_tpu_torch/ops/kernels/geometry.py::march_geometry picks the
-// chunk and the grid, and sizes the partials buffer (one CFL max per
-// block); tests/test_torch_geometry.py checks that every cell is
-// written by exactly one lane of one block.
+// function hipims_tpu_torch/ops/kernels/geometry.py::march_geometry picks
+// the chunk and the grid for a halo width, and sizes the partials buffer
+// (one CFL max per block); tests/test_torch_geometry.py checks that every
+// cell is written by exactly one lane of one block.
 //
 // Every lane of a warp runs every shuffle and ballot: lanes past the
 // ragged right or bottom edge load a clamped copy, solve faces nobody
@@ -29,39 +33,45 @@ namespace swe {
 
 // Held equal to ops/kernels/geometry.py by tests/test_torch_geometry.py.
 constexpr int MARCH_WARPS = 4;
-constexpr int LANE_COLS = 30;
 constexpr int MARCH_THREADS = 32 * MARCH_WARPS;
-constexpr int STRIP = LANE_COLS * MARCH_WARPS;  // the columns a block owns
+__host__ __device__ constexpr int lane_cols(int halo) {
+  return 32 - 2 * halo;
+}
+__host__ __device__ constexpr int strip(int halo) {
+  return lane_cols(halo) * MARCH_WARPS;
+}
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Whether a launch geometry is one the row-marching kernels take: a grid of
-// STRIP-column strips and ``chunk``-row chunks that covers every cell.
+// strip(HALO)-column strips and ``chunk``-row chunks that covers every cell.
+template <int HALO>
 inline bool march_geometry_ok(int rows, int cols, int chunk, int grid_x,
                               int grid_y) {
   return chunk >= 1 && grid_x >= 1 && grid_y >= 1 &&
-         int64_t(grid_x) * STRIP >= cols && int64_t(grid_y) * chunk >= rows &&
-         grid_y <= 65535;
+         int64_t(grid_x) * strip(HALO) >= cols &&
+         int64_t(grid_y) * chunk >= rows && grid_y <= 65535;
 }
 
 // Where a lane of a row-marching block works.
 struct MarchPos {
   int lane;    // lane in its warp
-  int c;       // its column, -1 or past the grid for a halo lane at an edge
+  int c;       // its column, < 0 or past the grid for a halo lane at an edge
   int cc;      // c clamped into the grid: the column it loads
   int r0;      // the block's rows are [r0, r_end)
   int r_end;
-  bool writes;  // lanes 1..LANE_COLS inside the grid own their column
+  bool writes;  // lanes HALO..31-HALO inside the grid own their column
 };
 
+template <int HALO>
 __device__ __forceinline__ MarchPos march_pos(int rows, int cols, int chunk) {
   MarchPos p;
   p.lane = int(threadIdx.x) & 31;
-  p.c = int(blockIdx.x) * STRIP + (int(threadIdx.x) >> 5) * LANE_COLS +
-        p.lane - 1;
+  p.c = int(blockIdx.x) * strip(HALO) +
+        (int(threadIdx.x) >> 5) * lane_cols(HALO) + p.lane - HALO;
   p.cc = min(max(p.c, 0), cols - 1);
   p.r0 = int(blockIdx.y) * chunk;
   p.r_end = min(p.r0 + chunk, rows);
-  p.writes = (p.lane >= 1) && (p.lane <= LANE_COLS) && (p.c < cols);
+  p.writes = (p.lane >= HALO) && (p.lane < 32 - HALO) && (p.c < cols);
   return p;
 }
 

@@ -21,8 +21,8 @@
 //   * corrector, per cell outside the two-cell ring: its own four faces
 //     and the facing faces of its four neighbours, each base +- 0.5 slope,
 //     with the slopes loaded (K3) or rebuilt from the radius-2 state
-//     neighbourhood (K5a-C, RECOMPUTE), or, in K5b (FUSED), the predictor of
-//     all five cells run inline from the state; the four MUSCL interfaces
+//     neighbourhood (K5a-C), or, in K5b, the predictor of all five cells run
+//     inline from the state; the four MUSCL interfaces
 //     (swe_common.cuh), datum terms and sources, the update (Neumaier
 //     comp_add when COMP), implicit friction, the dry clamp (judged on
 //     z + comp when COMP) BEFORE the max-FSL update, and the skips:
@@ -44,21 +44,27 @@
 // plane counts, not measurements.  Measured on one H100 80GB HBM3 at a
 // 700 W power limit (PERF.md), the predictors reach ~60% of that bandwidth
 // and K3 ~59% (41% before its redesign), but K5a-C only ~19%: rebuilding
-// ten slope vectors per cell, not memory, bounds it, so split12 is the
-// faster pair on this card despite moving more bytes.  K5b, with five
+// ten slope vectors per cell, not memory, bounded its first design, so
+// split12 was the faster pair on this card despite moving more bytes; the
+// row-marching K5a-C rebuilds two per cell.  K5b, with five
 // predictor evaluations and four MUSCL HLLC solves per cell, is bound by its
 // arithmetic even more.
 //
-// Design.  K3 marches rows with one solve per face, as K1 does (stencil.cu,
-// march.cuh): its note stands above muscl_correct_kernel below.  K2,
-// K5a-P, K5a-C and K5b keep the first, simple design until their own
-// redesigns: one thread per cell on 32x8 blocks, neighbours read through
-// L1/L2, every face solved by both of its cells (bit-identical under
-// --fmad=false), dt read on the device through a pointer.  K5b is the
-// rebuilding corrector template with a third source of its inputs, so it
-// shares every line of arithmetic with K2 and K5a-C and is bit-equal to the
-// split chains.  Shared-memory tiles (each cell's predictor run once per
-// block, not five times) are later work.
+// Design.  K3 and K5a-C are one row-marching kernel with one solve per
+// face, as K1 (stencil.cu, march.cuh), templated on where a row's slopes
+// come from: LOADED (K3, the 8 slope planes K2 stores) or REBUILT (K5a-C,
+// from a window of the state's rows); its note stands above
+// muscl_correct_kernel below.  The face solves, datum terms, update,
+// friction, dry clamp, skips and CFL partial are one body, so split12 and
+// recompute are bit-equal by construction.  K2, K5a-P and K5b keep the
+// first, simple design until their own redesigns: one thread per cell on
+// 32x8 blocks, neighbours read through L1/L2, every face solved by both of
+// its cells (bit-identical under --fmad=false), dt read on the device
+// through a pointer.  K5b runs the predictor of each of its five cells
+// inline (predict_cell), so it shares every line of arithmetic with K2 and
+// the corrector and is bit-equal to the split chains.  Shared-memory tiles
+// (each cell's predictor run once per block, not five times) are later
+// work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,27 +126,53 @@ __global__ void __launch_bounds__(BX * BY)
 }
 
 // K3, the split12 corrector, replaces hipims_tpu/ops/pallas/muscl_split.py
-// ::_corrector_kernel.  What bounds it on an H100: it reads 18 planes (the
-// 12 predictor planes, z, zmax, qx, qy, zb, n) and writes 4, 88 B/cell in
-// f32 (96 B/cell in f32c, with comp read and written), 176 B/cell in f64:
-// at 3.35 TB/s no less than 0.238 / 0.259 / 0.475 ms for 9.04 M cells.  The
-// step needs two MUSCL HLLC solves per cell (three IEEE divisions and two
-// square roots each, --fmad=false), and the first design solved four,
-// loading the base and slopes of four neighbours per cell through L1.
+// ::_corrector_kernel, and K5a-C, the recompute corrector, replaces
+// _corrector_recompute_kernel.  What bounds them on an H100: K3 reads 18
+// planes (the 12 predictor planes, z, zmax, qx, qy, zb, n) and writes 4,
+// 88 B/cell in f32 (96 B/cell in f32c, with comp read and written),
+// 176 B/cell in f64: at 3.35 TB/s no less than 0.238 / 0.259 / 0.475 ms for
+// 9.04 M cells.  K5a-C reads 10 (the 4 base planes and the state) and
+// writes 4: 56 / 64 / 112 B/cell, 0.151 / 0.173 / 0.302 ms.  The step needs
+// two MUSCL HLLC solves per cell (three IEEE divisions and two square
+// roots each, --fmad=false), and K5a-C two limited slope vectors; the first
+// designs solved four faces per cell, K5a-C rebuilding six slope vectors
+// for them, through L1.
 //
-// Row marching, one solve per face (march.cuh), as K1: each warp owns 30
-// columns of a chunk of rows and reads each row of each plane once, by one
-// coalesced load per plane; the next row's face inputs (base, slopes, qx,
-// qy, zmax) are loaded into registers while this row's x face is solved.
-// A lane extrapolates its own cell's four face estimates (base +- 0.5
-// slope), solves its east face against the west estimate of the lane to
-// its east (shuffled), takes its west face from the lane to its west, and
-// solves its north face against the next row's south estimate, which it
-// keeps as the next row's south face.  The local datum stays per cell, from
-// the cell's own face estimates.  The dry-neighbourhood skip (the
-// neighbours' zmax, a reference quirk) reads a ballot and the rows kept.
-// The solves and their argument order are those of the plain version, so
-// the bits do not change.
+// Row marching, one solve per face (march.cuh), as K1: each warp owns the
+// middle columns of a chunk of rows and reads each row of each plane once,
+// by one coalesced load per plane; the next row's inputs are loaded into
+// registers while this row's x face is solved.  A lane extrapolates its own
+// cell's four face estimates (base +- 0.5 slope), solves its east face
+// against the west estimate of the lane to its east (shuffled), takes its
+// west face from the lane to its west, and solves its north face against
+// the next row's south estimate, which it keeps as the next row's south
+// face.  The local datum stays per cell, from the cell's own face
+// estimates.  The dry-neighbourhood skip (the neighbours' zmax, a
+// reference quirk) reads a ballot and the rows kept.  The solves and their
+// argument order are those of the plain version, so the bits do not change.
+//
+// K5a-C rebuilds each cell's slopes once, in the row where the march first
+// needs them, as the TPU kernel rebuilds them once per tile from a radius-2
+// row window: a lane rebuilds its own cell's sx and sy and first-order flag
+// from its E/W neighbours (shuffles) and the rows it keeps.  The north face
+// needs the next row's south estimate, hence that row's sy, so the march
+// keeps the state of rows r and r+1 and loads row r+2 ahead (the base
+// planes only row r+1); a chunk starts from rows r0-2 .. r0+1, so that its
+// first south face can be built.  The west face of a warp's first owned
+// lane needs the slope of the column west of it, which needs one column
+// more: K5a-C takes two halo lanes on either side (28 owned columns), K3
+// one (30).  Rebuilt slopes are zero on first-order cells and on the
+// one-cell edge ring, as K2 stores them.
+
+// Where the corrector finds a row's limited slopes: LOADED, the 8 slope
+// planes after K2's 4 base planes (K3); REBUILT, from the state's rows,
+// beside K5a-P's 4 base planes (K5a-C).
+enum SlopeSource { LOADED = 0, REBUILT = 1 };
+
+// The halo lanes on either side of a corrector's warp (march.cuh).
+__host__ __device__ constexpr int corrector_halo(int slopes) {
+  return slopes == REBUILT ? 2 : 1;
+}
 
 // One lane's column in one row, as the corrector's faces need it: the
 // predictor's base state and slopes, the cell discharges (the stopping
@@ -161,6 +193,59 @@ __device__ __forceinline__ PredRow<T> load_pred_row(
                     zmax[i]};
 }
 
+// One lane's column in one row of the state, as a rebuilt slope needs it.
+template <typename T>
+struct StateRow {
+  T z, zb, qx, qy, zmax;
+};
+
+template <typename T>
+__device__ __forceinline__ StateRow<T> load_state_row(
+    const T* __restrict__ z, const T* __restrict__ zb,
+    const T* __restrict__ qx, const T* __restrict__ qy,
+    const T* __restrict__ zmax, int64_t i) {
+  return StateRow<T>{z[i], zb[i], qx[i], qy[i], zmax[i]};
+}
+
+// Whether a lane's cell in row r lies on the one-cell edge ring (or, for a
+// clamped copy, outside the grid).
+__device__ __forceinline__ bool on_edge_ring(int r, int c, int rows,
+                                             int cols) {
+  return (r <= 0) || (r >= rows - 1) || (c <= 0) || (c >= cols - 1);
+}
+
+// K5a-C: a row's face inputs from its base and its state row c, with the
+// state rows s (south) and nr (north) beside it: the cell's limited slopes
+// as predict_cell stores them (muscl_common.cuh), zero on a first-order
+// cell or on the edge ring.  The E/W neighbours come by shuffle, so every
+// lane must call it.
+template <typename T>
+__device__ __forceinline__ PredRow<T> rebuilt_row(const swe::Quad<T>& base,
+                                                  const StateRow<T>& s,
+                                                  const StateRow<T>& c,
+                                                  const StateRow<T>& nr,
+                                                  bool edge, T vs) {
+  using namespace swe;
+  const T z_e = from_east(c.z), zb_e = from_east(c.zb);
+  const T qx_e = from_east(c.qx), qy_e = from_east(c.qy);
+  const T z_w = from_west(c.z), zb_w = from_west(c.zb);
+  const T qx_w = from_west(c.qx), qy_w = from_west(c.qy);
+  const T zmax_e = from_east(c.zmax), zmax_w = from_west(c.zmax);
+  const bool first =
+      first_order_mask(c.z - c.zb, nr.zmax, zmax_e, s.zmax, zmax_w);
+  const Quad<T> zero{T(0), T(0), T(0), T(0)};
+  const bool flat = first || edge;
+  const Quad<T> sx =
+      flat ? zero
+           : slope_vector(z_w, zb_w, qx_w, qy_w, c.z, c.zb, c.qx, c.qy, z_e,
+                          zb_e, qx_e, qy_e, vs);
+  const Quad<T> sy =
+      flat ? zero
+           : slope_vector(s.z, s.zb, s.qx, s.qy, c.z, c.zb, c.qx, c.qy, nr.z,
+                          nr.zb, nr.qx, nr.qy, vs);
+  return PredRow<T>{base, sx, sy, c.qx, c.qy, c.zmax};
+}
+
 // The y face between a cell and the cell north of it: the south cell's
 // north estimate against the north cell's south estimate; along = qy.
 template <typename T>
@@ -175,7 +260,7 @@ __device__ __forceinline__ swe::Face<T> muscl_north_face(const PredRow<T>& s,
                                     vs);
 }
 
-template <typename T, bool COMP>
+template <typename T, bool COMP, int SLOPES>
 __global__ void __launch_bounds__(swe::MARCH_THREADS)
     muscl_correct_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
@@ -188,27 +273,64 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                          int rows, int cols, int chunk, T inv_dx, T inv_dy,
                          T vs, T qs, bool friction) {
   using namespace swe;
-  const MarchPos p = march_pos(rows, cols, chunk);
+  const MarchPos p = march_pos<corrector_halo(SLOPES)>(rows, cols, chunk);
   const int64_t plane = int64_t(rows) * cols;
   const T dt = *dt_ptr;
 
   // The chunk's first south face, from the row before it (a clamped copy
-  // for the first chunk, whose first rows are edge ring).
-  const PredRow<T> before = load_pred_row(
-      pred, plane, qx, qy, zmax, march_index(p.r0 - 1, rows, cols, p.cc));
-  PredRow<T> cur = load_pred_row(pred, plane, qx, qy, zmax,
-                                 march_index(p.r0, rows, cols, p.cc));
+  // for the first chunk, whose first rows are edge ring).  K5a-C keeps the
+  // state of rows r and r+1 (s_0, s_1) for the next row's slopes.
+  PredRow<T> before, cur;
+  StateRow<T> s_0, s_1;
+  if constexpr (SLOPES == LOADED) {
+    before = load_pred_row(pred, plane, qx, qy, zmax,
+                           march_index(p.r0 - 1, rows, cols, p.cc));
+    cur = load_pred_row(pred, plane, qx, qy, zmax,
+                        march_index(p.r0, rows, cols, p.cc));
+  } else {
+    const StateRow<T> s_m2 = load_state_row(
+        z, zb, qx, qy, zmax, march_index(p.r0 - 2, rows, cols, p.cc));
+    const StateRow<T> s_m1 = load_state_row(
+        z, zb, qx, qy, zmax, march_index(p.r0 - 1, rows, cols, p.cc));
+    s_0 = load_state_row(z, zb, qx, qy, zmax,
+                         march_index(p.r0, rows, cols, p.cc));
+    s_1 = load_state_row(z, zb, qx, qy, zmax,
+                         march_index(p.r0 + 1, rows, cols, p.cc));
+    before = rebuilt_row(
+        load_quad(pred, plane, march_index(p.r0 - 1, rows, cols, p.cc)),
+        s_m2, s_m1, s_0, on_edge_ring(p.r0 - 1, p.c, rows, cols), vs);
+    cur = rebuilt_row(
+        load_quad(pred, plane, march_index(p.r0, rows, cols, p.cc)), s_m1,
+        s_0, s_1, on_edge_ring(p.r0, p.c, rows, cols), vs);
+  }
   Face<T> fs = muscl_north_face(before, cur, vs);
   bool low_s = before.zmax < vs;
   T spd = T(0);
 
   for (int r = p.r0; r < p.r_end; ++r) {
     const int64_t i = march_index(r, rows, cols, p.cc);
-    // In flight while this row's x face is solved.
-    const PredRow<T> next = load_pred_row(
-        pred, plane, qx, qy, zmax, march_index(r + 1, rows, cols, p.cc));
-    const T zc = z[i];
-    const T zbc = zb[i];
+    // In flight while this row's x face is solved: the next row's face
+    // inputs (K3), or its base and the state row after it (K5a-C).
+    PredRow<T> next;
+    Quad<T> base_next;
+    StateRow<T> s_2;
+    if constexpr (SLOPES == LOADED) {
+      next = load_pred_row(pred, plane, qx, qy, zmax,
+                           march_index(r + 1, rows, cols, p.cc));
+    } else {
+      base_next =
+          load_quad(pred, plane, march_index(r + 1, rows, cols, p.cc));
+      s_2 = load_state_row(z, zb, qx, qy, zmax,
+                           march_index(r + 2, rows, cols, p.cc));
+    }
+    T zc, zbc;
+    if constexpr (SLOPES == LOADED) {
+      zc = z[i];
+      zbc = zb[i];
+    } else {
+      zc = s_0.z;
+      zbc = s_0.zb;
+    }
     const T n_c = friction ? n[i] : T(0);
     const T comp_c = COMP ? comp[i] : T(0);
 
@@ -222,6 +344,10 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
         cur.qy, from_east(cur.qy), vs);
     const Face<T> fw = face_from_west(fe, p.lane);
     // y faces: the north face; the south face is the row before's north.
+    if constexpr (SLOPES == REBUILT) {
+      next = rebuilt_row(base_next, s_0, s_1, s_2,
+                         on_edge_ring(r + 1, p.c, rows, cols), vs);
+    }
     const Face<T> fn = muscl_north_face(cur, next, vs);
     const bool low_c = cur.zmax < vs;
     const unsigned low_row = __ballot_sync(FULL_MASK, low_c);
@@ -310,42 +436,28 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
     fs = fn;
     low_s = low_c;
     cur = next;
+    if constexpr (SLOPES == REBUILT) {
+      s_0 = s_1;
+      s_1 = s_2;
+    }
   }
   block_max_store<T, MARCH_THREADS>(spd, speeds);
 }
 
-// Where the rebuilding corrector finds the predicted base planes and the
-// slopes: RECOMPUTE (K5a-C) loads the 4 base planes and rebuilds the
-// slopes; FUSED (K5b) rebuilds both, running the predictor of each of its
-// five cells inline, and reads no predictor plane.
-enum CorrectMode { RECOMPUTE = 1, FUSED = 2 };
-
-// Cell i's limited slope along the axis whose neighbours lie ``stride``
-// apart (1: sx, cols: sy), as the predictor stores it: zero on a
-// first-order cell.
-template <typename T>
-__device__ __forceinline__ Quad<T> rebuilt_slope(
-    const T* __restrict__ z, const T* __restrict__ zmax,
-    const T* __restrict__ qx, const T* __restrict__ qy,
-    const T* __restrict__ zb, int64_t i, int cols, int64_t stride, T vs) {
-  if (swe::cell_first_order(z, zmax, zb, i, cols)) {
-    return Quad<T>{T(0), T(0), T(0), T(0)};
-  }
-  return swe::cell_slope(z, zb, qx, qy, i, stride, vs);
-}
-
-template <typename T, bool COMP, int MODE>
+// K5b: the whole MUSCL-Hancock step per cell, the predictor of the cell and
+// of its four neighbours run inline from the state (predict_cell), then the
+// corrector's four faces; it reads no predictor plane.
+template <typename T, bool COMP>
 __global__ void __launch_bounds__(BX * BY)
-    muscl_rebuild_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
-                         const T* __restrict__ qx, const T* __restrict__ qy,
-                         const T* __restrict__ zb, const T* __restrict__ n,
-                         const T* __restrict__ pred,
-                         const T* __restrict__ comp, T* __restrict__ z_out,
-                         T* __restrict__ zmax_out, T* __restrict__ qx_out,
-                         T* __restrict__ qy_out, T* __restrict__ comp_out,
-                         T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                         int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
-                         bool friction) {
+    muscl_fused_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
+                       const T* __restrict__ qx, const T* __restrict__ qy,
+                       const T* __restrict__ zb, const T* __restrict__ n,
+                       const T* __restrict__ comp, T* __restrict__ z_out,
+                       T* __restrict__ zmax_out, T* __restrict__ qx_out,
+                       T* __restrict__ qy_out, T* __restrict__ comp_out,
+                       T* __restrict__ speeds, const T* __restrict__ dt_ptr,
+                       int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
+                       bool friction) {
   using namespace swe;
   const int c = blockIdx.x * BX + threadIdx.x;
   const int r = blockIdx.y * BY + threadIdx.y;
@@ -353,7 +465,6 @@ __global__ void __launch_bounds__(BX * BY)
   T spd = T(0);
 
   if (inside) {
-    const int64_t plane = int64_t(rows) * cols;
     const int64_t i = int64_t(r) * cols + c;
     const T zc = z[i];
     const T zmax_c = zmax[i];
@@ -371,37 +482,18 @@ __global__ void __launch_bounds__(BX * BY)
       const int64_t ie = i + 1, iw = i - 1, in = i + cols, is = i - cols;
 
       // The base state and slopes of the cell and of its four neighbours.
-      const int64_t ny = cols;
+      const T half_dt = T(0.5) * dt;
       Quad<T> base, base_e, base_w, base_n, base_s;
-      Quad<T> sx, sy, sx_e, sx_w, sy_n, sy_s;
-      if constexpr (MODE == FUSED) {
-        const T half_dt = T(0.5) * dt;
-        Quad<T> unused;
+      Quad<T> sx, sy, sx_e, sx_w, sy_n, sy_s, unused;
 #define PREDICT(cell, b, s_x, s_y) \
   predict_cell(z, zmax, qx, qy, zb, cell, cols, half_dt, inv_dx, inv_dy, vs, \
                b, s_x, s_y)
-        PREDICT(i, base, sx, sy);
-        PREDICT(ie, base_e, sx_e, unused);
-        PREDICT(iw, base_w, sx_w, unused);
-        PREDICT(in, base_n, unused, sy_n);
-        PREDICT(is, base_s, unused, sy_s);
+      PREDICT(i, base, sx, sy);
+      PREDICT(ie, base_e, sx_e, unused);
+      PREDICT(iw, base_w, sx_w, unused);
+      PREDICT(in, base_n, unused, sy_n);
+      PREDICT(is, base_s, unused, sy_s);
 #undef PREDICT
-      } else {
-#define SLOPE(cell, stride) \
-  rebuilt_slope(z, zmax, qx, qy, zb, cell, cols, stride, vs)
-        sx = SLOPE(i, 1);
-        sy = SLOPE(i, ny);
-        sx_e = SLOPE(ie, 1);
-        sx_w = SLOPE(iw, 1);
-        sy_n = SLOPE(in, ny);
-        sy_s = SLOPE(is, ny);
-#undef SLOPE
-        base = load_quad(pred, plane, i);
-        base_e = load_quad(pred, plane, ie);
-        base_w = load_quad(pred, plane, iw);
-        base_n = load_quad(pred, plane, in);
-        base_s = load_quad(pred, plane, is);
-      }
       // Own faces, and the facing face of each neighbour.
       const Quad<T> ex_n = extrap(base, sy, T(0.5));
       const Quad<T> ex_e = extrap(base, sx, T(0.5));
@@ -524,17 +616,18 @@ int predict(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COMP>
+template <typename T, bool COMP, int SLOPES>
 int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
             const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
             T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
             int rows, int cols, int chunk, int grid_x, int grid_y,
             double inv_dx, double inv_dy, double vs, double qs, int friction,
             void* stream) {
-  if (!swe::march_geometry_ok(rows, cols, chunk, grid_x, grid_y)) {
+  if (!swe::march_geometry_ok<corrector_halo(SLOPES)>(rows, cols, chunk,
+                                                      grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
-  muscl_correct_kernel<T, COMP>
+  muscl_correct_kernel<T, COMP, SLOPES>
       <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
          (cudaStream_t)stream>>>(
           z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
@@ -543,50 +636,50 @@ int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COMP, int MODE>
-int rebuild(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
-            const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
-            T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
-            int rows, int cols, double inv_dx, double inv_dy, double vs,
-            double qs, int friction, void* stream) {
-  muscl_rebuild_kernel<T, COMP, MODE>
+// The corrector's instantiation for ``slopes`` (a SlopeSource); -1 for an
+// unknown source (cudaErrorInvalidValue is 1, so the wrapper raises).
+template <typename T, bool COMP>
+int correct_from(const T* z, const T* zmax, const T* qx, const T* qy,
+                 const T* zb, const T* n, const T* pred, const T* comp,
+                 T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
+                 T* speeds, const T* dt, int rows, int cols, int chunk,
+                 int grid_x, int grid_y, double inv_dx, double inv_dy,
+                 double vs, double qs, int friction, int slopes,
+                 void* stream) {
+#define MUSCL_CORRECT(SLOPES)                                                 \
+  return correct<T, COMP, SLOPES>(z, zmax, qx, qy, zb, n, pred, comp, z_out,  \
+                                  zmax_out, qx_out, qy_out, comp_out, speeds, \
+                                  dt, rows, cols, chunk, grid_x, grid_y,      \
+                                  inv_dx, inv_dy, vs, qs, friction, stream)
+  switch (slopes) {
+    case LOADED:
+      MUSCL_CORRECT(LOADED);
+    case REBUILT:
+      MUSCL_CORRECT(REBUILT);
+  }
+#undef MUSCL_CORRECT
+  return -1;
+}
+
+template <typename T, bool COMP>
+int fused(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
+          const T* n, const T* comp, T* z_out, T* zmax_out, T* qx_out,
+          T* qy_out, T* comp_out, T* speeds, const T* dt, int rows, int cols,
+          double inv_dx, double inv_dy, double vs, double qs, int friction,
+          void* stream) {
+  muscl_fused_kernel<T, COMP>
       <<<grid_of(rows, cols), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-          z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
+          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
           comp_out, speeds, dt, rows, cols, T(inv_dx), T(inv_dy), T(vs),
           T(qs), friction != 0);
   return (int)cudaGetLastError();
 }
 
-// The rebuilding corrector's instantiation for ``mode`` (a CorrectMode);
-// -1 for an unknown mode (cudaErrorInvalidValue is 1, so the wrapper
-// raises).
-template <typename T, bool COMP>
-int rebuild_mode(const T* z, const T* zmax, const T* qx, const T* qy,
-                 const T* zb, const T* n, const T* pred, const T* comp,
-                 T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
-                 T* speeds, const T* dt, int rows, int cols, double inv_dx,
-                 double inv_dy, double vs, double qs, int friction, int mode,
-                 void* stream) {
-#define MUSCL_REBUILD(MODE)                                                  \
-  return rebuild<T, COMP, MODE>(z, zmax, qx, qy, zb, n, pred, comp, z_out,   \
-                                zmax_out, qx_out, qy_out, comp_out, speeds,  \
-                                dt, rows, cols, inv_dx, inv_dy, vs, qs,      \
-                                friction, stream)
-  switch (mode) {
-    case RECOMPUTE:
-      MUSCL_REBUILD(RECOMPUTE);
-    case FUSED:
-      MUSCL_REBUILD(FUSED);
-  }
-#undef MUSCL_REBUILD
-  return -1;
-}
-
 }  // namespace
 
 // Each function returns the CUDA error code of its launch (0 = success;
-// cudaErrorInvalidValue for a geometry K3 cannot take).  comp == nullptr
-// selects the uncompensated instantiation.
+// cudaErrorInvalidValue for a geometry the correctors cannot take).
+// comp == nullptr selects the uncompensated instantiation.
 extern "C" {
 
 // pred holds 12 (or 4) contiguous (rows, cols) planes: base z, h, qx,
@@ -607,8 +700,10 @@ int muscl_predict_f64(const double* z, const double* zmax, const double* qx,
                          cols, inv_dx, inv_dy, vs, stream);
 }
 
-// K3 on all 12 predictor planes.  chunk, grid_x, grid_y: ops/kernels/
-// geometry.py march_geometry; speeds holds grid_x * grid_y partial maxima.
+// K3 (slopes LOADED: pred holds all 12 predictor planes) and K5a-C (slopes
+// REBUILT: pred holds the 4 base planes).  chunk, grid_x, grid_y:
+// ops/kernels/geometry.py march_geometry with the halo of the slope source
+// (1 and 2 lanes); speeds holds grid_x * grid_y partial maxima.
 int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, const float* n,
                       const float* pred, const float* comp, float* z_out,
@@ -616,17 +711,17 @@ int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       float* comp_out, float* speeds, const float* dt,
                       int rows, int cols, int chunk, int grid_x, int grid_y,
                       double inv_dx, double inv_dy, double vs,
-                      double qs, int friction, void* stream) {
+                      double qs, int friction, int slopes, void* stream) {
   if (comp != nullptr) {
-    return correct<float, true>(
+    return correct_from<float, true>(
         z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
         comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
-        inv_dx, inv_dy, vs, qs, friction, stream);
+        inv_dx, inv_dy, vs, qs, friction, slopes, stream);
   }
-  return correct<float, false>(
+  return correct_from<float, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, stream);
+      inv_dy, vs, qs, friction, slopes, stream);
 }
 
 int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
@@ -636,53 +731,47 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
                       const double* dt, int rows, int cols, int chunk,
                       int grid_x, int grid_y, double inv_dx,
                       double inv_dy, double vs, double qs, int friction,
-                      void* stream) {
-  return correct<double, false>(
+                      int slopes, void* stream) {
+  return correct_from<double, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
       nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, stream);
+      inv_dy, vs, qs, friction, slopes, stream);
 }
 
-// K5a-C and K5b: the number of per-block partial maxima they write.
-int muscl_rebuild_partials(int rows, int cols) {
+// K5b: the number of per-block partial maxima it writes.
+int muscl_fused_partials(int rows, int cols) {
   const dim3 g = grid_of(rows, cols);
   return int(g.x * g.y);
 }
 
-// K5a-C and K5b.  mode (a CorrectMode): RECOMPUTE, pred holds the 4 base
-// planes and the kernel rebuilds the slopes; FUSED, pred is unused (may be
-// null) and the kernel runs the whole step.
-int muscl_rebuild_f32(const float* z, const float* zmax, const float* qx,
-                      const float* qy, const float* zb, const float* n,
-                      const float* pred, const float* comp, float* z_out,
-                      float* zmax_out, float* qx_out, float* qy_out,
-                      float* comp_out, float* speeds, const float* dt,
-                      int rows, int cols, double inv_dx, double inv_dy,
-                      double vs, double qs, int friction, int mode,
-                      void* stream) {
+// K5b: the whole step from the state.
+int muscl_fused_f32(const float* z, const float* zmax, const float* qx,
+                    const float* qy, const float* zb, const float* n,
+                    const float* comp, float* z_out, float* zmax_out,
+                    float* qx_out, float* qy_out, float* comp_out,
+                    float* speeds, const float* dt, int rows, int cols,
+                    double inv_dx, double inv_dy, double vs, double qs,
+                    int friction, void* stream) {
   if (comp != nullptr) {
-    return rebuild_mode<float, true>(
-        z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction,
-        mode, stream);
+    return fused<float, true>(z, zmax, qx, qy, zb, n, comp, z_out, zmax_out,
+                              qx_out, qy_out, comp_out, speeds, dt, rows,
+                              cols, inv_dx, inv_dy, vs, qs, friction, stream);
   }
-  return rebuild_mode<float, false>(
-      z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
-      stream);
+  return fused<float, false>(z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out,
+                             qx_out, qy_out, nullptr, speeds, dt, rows, cols,
+                             inv_dx, inv_dy, vs, qs, friction, stream);
 }
 
-int muscl_rebuild_f64(const double* z, const double* zmax, const double* qx,
-                      const double* qy, const double* zb, const double* n,
-                      const double* pred, double* z_out, double* zmax_out,
-                      double* qx_out, double* qy_out, double* speeds,
-                      const double* dt, int rows, int cols, double inv_dx,
-                      double inv_dy, double vs, double qs, int friction,
-                      int mode, void* stream) {
-  return rebuild_mode<double, false>(
-      z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, inv_dx, inv_dy, vs, qs, friction, mode,
-      stream);
+int muscl_fused_f64(const double* z, const double* zmax, const double* qx,
+                    const double* qy, const double* zb, const double* n,
+                    double* z_out, double* zmax_out, double* qx_out,
+                    double* qy_out, double* speeds, const double* dt,
+                    int rows, int cols, double inv_dx, double inv_dy,
+                    double vs, double qs, int friction, void* stream) {
+  return fused<double, false>(z, zmax, qx, qy, zb, n, nullptr, z_out,
+                              zmax_out, qx_out, qy_out, nullptr, speeds, dt,
+                              rows, cols, inv_dx, inv_dy, vs, qs, friction,
+                              stream);
 }
 
 }  // extern "C"

@@ -33,8 +33,10 @@
 // step cannot take less than 0.108 ms (f32), 0.130 ms (f32c), 0.216 ms
 // (f64).  The step needs two HLLC solves per cell (one per face), each with
 // three IEEE divisions and two square roots, plus one exp/log pair and
-// three divisions of friction; built with --fmad=false, so that the kernel
-// stays bit-equal to its plain version, that arithmetic issues slowly.
+// three divisions of friction; K4's face discharge takes an exp/log pair,
+// a square root and four divisions.  Built with --fmad=false, so that the
+// kernels stay bit-equal to their plain versions, that arithmetic
+// executes slowly.
 //
 // K1's design: row marching, one solve per face (march.cuh).  Each warp
 // owns a strip of 30 columns (32 lanes with a halo lane on either side) and
@@ -53,9 +55,23 @@
 // so the bits do not change.  The dry-neighbourhood skip reads the
 // neighbours' depth flags from a ballot and from the rows kept.
 //
-// K4 keeps the first, simple design until its own redesign: one thread per
-// cell on 32x8 blocks, neighbours read through L1/L2, each thread computing
-// its own four face discharges.  Its launch and partials count are its own.
+// K4's design: row marching as K1 (march.cuh, one halo lane), with the
+// part of a face's discharge that its two cells share computed once.  Each
+// row of z, zb, qx, qy, zmax, n (and comp) is read once per warp by one
+// coalesced load; the next row is loaded ahead and the row before is kept.
+// A cell's east discharge and its east neighbour's west discharge take the
+// same previous discharge (qx[c+1]), levels and beds, and differ only in
+// the Manning n, since the reference computes every face with the
+// computing cell's own n; the same holds for a north discharge and the next
+// row's south one.  So a lane computes its east and north faces' shared
+// part (face_flow: the exp/log pair, the square root, the slope) once and
+// applies each side's n to it (face_drag: the drag's and the limiter's
+// divisions); the second drag is skipped where the two n are equal, and the
+// west (south) discharge comes from the lane to the west (the row before).
+// Per cell that is two exp/log pairs and two square roots, against four in
+// a one-thread-per-cell kernel; a model with one Manning value also
+// applies two drags per cell, not four.  The dry-neighbourhood skip reads a
+// ballot and the rows kept, as in K1.
 //
 // Both: --fmad=false keeps each kernel bit-equal to its plain version (K4's
 // depth^(10/3) is one exp/log pair on both sides, and |q| / depth /
@@ -110,7 +126,7 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                         int rows, int cols, int chunk, T inv_dx, T inv_dy,
                         T vs, T qs, bool friction, bool simplified) {
   using namespace swe;
-  const MarchPos p = march_pos(rows, cols, chunk);
+  const MarchPos p = march_pos<1>(rows, cols, chunk);
   const T dt = *dt_ptr;
 
   // The chunk's first south face, from the row before it (a clamped copy
@@ -226,38 +242,59 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
   block_max_store<T, MARCH_THREADS>(spd, speeds);
 }
 
-// K4's block: one thread per cell.
-constexpr int BX = 32;
-constexpr int BY = 8;
-
-// ops/inertial.py::_face_discharge for one face: "up" is its east (north)
-// side, "down" its west (south) side, manning the computing cell's n.
+// ops/inertial.py::_face_discharge for one face, in two parts.  The
+// face's two cells compute it with the same previous discharge, levels and
+// beds and differ only in the Manning n (the reference computes every face
+// with the computing cell's own n), so face_flow is what they share and
+// face_drag the part that takes the n: the implicit Manning drag and the
+// Froude limiter.  face_drag(face_flow(...), n) performs the operations of
+// _face_discharge in its order, so each cell's discharge keeps its bits.
+// "up" is the face's east (north) side, "down" its west (south) side.
 template <typename T>
-__device__ __forceinline__ T face_discharge(T manning, T dt, T prev_q,
-                                            T level_up, T bed_up,
-                                            T level_down, T bed_down, T dx,
-                                            T vs) {
+struct FaceFlow {
+  T num;       // prev_q - g depth dt slope
+  T gdd;       // g depth dt
+  T aq;        // |prev_q|
+  T e10;       // depth^(10/3)
+  T depth_s;   // depth, 1 where dry
+  T celerity;  // sqrt(g depth)
+  T q_lim;     // the Froude limit's discharge
+  bool dry;
+};
+
+template <typename T>
+__device__ __forceinline__ FaceFlow<T> face_flow(T dt, T prev_q, T level_up,
+                                                 T bed_up, T level_down,
+                                                 T bed_down, T dx, T vs) {
   using namespace swe;
   const T g = T(GRAVITY);
+  FaceFlow<T> f;
   const T depth = vmax(level_down, level_up) - vmax(bed_up, bed_down);
-  const bool dry = depth < vs;
-  const T depth_s = dry ? T(1) : depth;
+  f.dry = depth < vs;
+  f.depth_s = f.dry ? T(1) : depth;
   const T slope = (level_down - level_up) / dx;
-  T q = (prev_q - g * depth_s * dt * slope) /
-        (T(1) + g * depth_s * dt * manning * manning * vabs(prev_q) /
-                    vexp(vlog(depth_s) * T(10.0 / 3.0)));
-  // Froude limiter.
-  const T celerity = vsqrt(g * depth_s);
-  const T froude = vabs(q) / depth_s / celerity;
-  const T q_lim = depth_s * celerity * T(FROUDE_LIMIT);
+  f.gdd = g * f.depth_s * dt;
+  f.num = prev_q - f.gdd * slope;
+  f.aq = vabs(prev_q);
+  f.e10 = vexp(vlog(f.depth_s) * T(10.0 / 3.0));
+  f.celerity = vsqrt(g * f.depth_s);
+  f.q_lim = f.depth_s * f.celerity * T(FROUDE_LIMIT);
+  return f;
+}
+
+template <typename T>
+__device__ __forceinline__ T face_drag(const FaceFlow<T>& f, T manning) {
+  using namespace swe;
+  T q = f.num / (T(1) + f.gdd * manning * manning * f.aq / f.e10);
+  const T froude = vabs(q) / f.depth_s / f.celerity;
   const bool fast = froude > T(FROUDE_LIMIT);
-  q = ((q > T(0)) && fast) ? q_lim : q;
-  q = ((q < T(0)) && fast) ? -q_lim : q;
-  return dry ? T(0) : q;
+  q = ((q > T(0)) && fast) ? f.q_lim : q;
+  q = ((q < T(0)) && fast) ? -f.q_lim : q;
+  return f.dry ? T(0) : q;
 }
 
 template <typename T, bool COMP>
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(swe::MARCH_THREADS)
     inertial_step_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
                          const T* __restrict__ zb, const T* __restrict__ n,
@@ -265,73 +302,102 @@ __global__ void __launch_bounds__(BX * BY)
                          T* __restrict__ zmax_out, T* __restrict__ qx_out,
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                         int rows, int cols, T dx, T dy, T vs, T qs,
-                         bool simplified) {
+                         int rows, int cols, int chunk, T dx, T dy, T vs,
+                         T qs, bool simplified) {
   using namespace swe;
-  const int c = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  const bool inside = (r < rows) && (c < cols);
+  const MarchPos p = march_pos<1>(rows, cols, chunk);
+  const T dt = *dt_ptr;
+
+  // The row before the chunk (a clamped copy for the first chunk, whose
+  // first row is edge ring) and the chunk's first south discharge.
+  Column<T> south =
+      load_column(z, zb, qx, qy, march_index(p.r0 - 1, rows, cols, p.cc));
+  const int64_t i0 = march_index(p.r0, rows, cols, p.cc);
+  Column<T> cur = load_column(z, zb, qx, qy, i0);
+  T n_c = n[i0];
+  T q_s = face_drag(
+      face_flow(dt, cur.qy, cur.z, cur.zb, south.z, south.zb, dx, vs), n_c);
   T spd = T(0);
 
-  if (inside) {
-    const int64_t i = int64_t(r) * cols + c;
-    const T zc = z[i];
+  for (int r = p.r0; r < p.r_end; ++r) {
+    const int64_t i = march_index(r, rows, cols, p.cc);
+    // In flight while this row's east face is computed.
+    const int64_t i_next = march_index(r + 1, rows, cols, p.cc);
+    const Column<T> next = load_column(z, zb, qx, qy, i_next);
+    const T n_next = n[i_next];
     const T zmax_c = zmax[i];
-    const T qx_c0 = qx[i];
-    const T qy_c0 = qy[i];
-    const T zbc = zb[i];
-    T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
-    T comp_o = T(0);
-    if (COMP) comp_o = comp[i];
+    const T comp_c = COMP ? comp[i] : T(0);
 
-    const bool ring = (r == 0) || (r == rows - 1) || (c == 0) ||
-                      (c == cols - 1);
-    if (!ring) {
-      const T dt = *dt_ptr;
-      const T nc = n[i];
-      const int64_t ie = i + 1, iw = i - 1, in = i + cols, is = i - cols;
-      const T z_e = z[ie], z_w = z[iw], z_n = z[in], z_s = z[is];
-      const T zb_e = zb[ie], zb_w = zb[iw], zb_n = zb[in], zb_s = zb[is];
+    // The east face: this cell's discharge with its n, and the east
+    // neighbour's (its west discharge) with that cell's n, the same bits
+    // where the two n are equal; NaN equals nothing, so a NaN n gets its
+    // own drag and keeps propagating.
+    const FaceFlow<T> fx =
+        face_flow(dt, from_east(cur.qx), from_east(cur.z), from_east(cur.zb),
+                  cur.z, cur.zb, dx, vs);
+    const T n_e = from_east(n_c);
+    const T q_e = face_drag(fx, n_c);
+    T q_east_w = q_e;
+    if (!(n_e == n_c)) q_east_w = face_drag(fx, n_e);
+    const T q_w = from_west(q_east_w);
+    // The north face, likewise: this cell's north discharge and the next
+    // row's south one.
+    const FaceFlow<T> fy =
+        face_flow(dt, next.qy, next.z, next.zb, cur.z, cur.zb, dx, vs);
+    const T q_n = face_drag(fy, n_c);
+    T q_next_s = q_n;
+    if (!(n_next == n_c)) q_next_s = face_drag(fy, n_next);
+    const bool dry_c = cur.z - cur.zb < vs;
+    const unsigned dry_row = __ballot_sync(FULL_MASK, dry_c);
 
-      const T q_e = face_discharge(nc, dt, qx[ie], z_e, zb_e, zc, zbc, dx, vs);
-      const T q_w = face_discharge(nc, dt, qx_c0, zc, zbc, z_w, zb_w, dx, vs);
-      const T q_n = face_discharge(nc, dt, qy[in], z_n, zb_n, zc, zbc, dx, vs);
-      const T q_s = face_discharge(nc, dt, qy_c0, zc, zbc, z_s, zb_s, dx, vs);
+    if (p.writes) {
+      const T zc = cur.z, zbc = cur.zb;
+      T z_o = zc, zmax_o = zmax_c, qx_o = cur.qx, qy_o = cur.qy;
+      T comp_o = comp_c;
+      const bool ring = (r == 0) || (r == rows - 1) || (p.c == 0) ||
+                        (p.c == cols - 1);
+      if (!ring) {
+        const T d_fsl = (q_e - q_w + q_n - q_s) / dy;
+        T z_new, comp_new = T(0);
+        if (COMP) {
+          comp_add(zc, comp_c, dt * d_fsl, z_new, comp_new);
+        } else {
+          z_new = zc + dt * d_fsl;
+        }
+        const T zmax_new = (z_new > zmax_c) ? z_new : zmax_c;
+        const bool dry_new =
+            COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
+        z_new = dry_new ? zbc : z_new;
 
-      const T d_fsl = (q_e - q_w + q_n - q_s) / dy;
-      T z_new, comp_new = T(0);
-      if (COMP) {
-        comp_add(zc, comp_o, dt * d_fsl, z_new, comp_new);
-      } else {
-        z_new = zc + dt * d_fsl;
+        const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
+        const bool dry5 = dry_c && east_bit(dry_row, p.lane) &&
+                          west_bit(dry_row, p.lane) &&
+                          (next.z - next.zb < vs) &&
+                          (south.z - south.zb < vs);
+        const bool keep = disabled || dry5 || (dt <= T(0));
+        if (!keep) {
+          z_o = z_new;
+          zmax_o = zmax_new;
+          qx_o = q_w;
+          qy_o = q_s;
+          if (COMP) comp_o = dry_new ? T(0) : comp_new;
+        }
       }
-      const T zmax_new = (z_new > zmax_c) ? z_new : zmax_c;
-      const bool dry_new =
-          COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
-      z_new = dry_new ? zbc : z_new;
-
-      const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
-      const bool dry5 = (zc - zbc < vs) && (z_e - zb_e < vs) &&
-                        (z_w - zb_w < vs) && (z_n - zb_n < vs) &&
-                        (z_s - zb_s < vs);
-      const bool keep = disabled || dry5 || (dt <= T(0));
-      if (!keep) {
-        z_o = z_new;
-        zmax_o = zmax_new;
-        qx_o = q_w;
-        qy_o = q_s;
-        if (COMP) comp_o = dry_new ? T(0) : comp_new;
-      }
+      z_out[i] = z_o;
+      zmax_out[i] = zmax_o;
+      qx_out[i] = qx_o;
+      qy_out[i] = qy_o;
+      if (COMP) comp_out[i] = comp_o;
+      spd = nan_max(spd,
+                    cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
     }
-    z_out[i] = z_o;
-    zmax_out[i] = zmax_o;
-    qx_out[i] = qx_o;
-    qy_out[i] = qy_o;
-    if (COMP) comp_out[i] = comp_o;
-    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified);
+    q_s = q_next_s;
+    n_c = n_next;
+    south = cur;
+    cur = next;
   }
 
-  block_max_store<T, BX * BY>(spd, speeds);
+  block_max_store<T, MARCH_THREADS>(spd, speeds);
 }
 
 template <typename T, bool COMP>
@@ -342,7 +408,7 @@ int launch_godunov(const T* z, const T* zmax, const T* qx, const T* qy,
                    int grid_y, double inv_dx, double inv_dy,
                    double vs, double qs, int friction, int simplified,
                    void* stream) {
-  if (!swe::march_geometry_ok(rows, cols, chunk, grid_x, grid_y)) {
+  if (!swe::march_geometry_ok<1>(rows, cols, chunk, grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
   godunov_step_kernel<T, COMP>
@@ -358,14 +424,18 @@ template <typename T, bool COMP>
 int launch_inertial(const T* z, const T* zmax, const T* qx, const T* qy,
                     const T* zb, const T* n, const T* comp, T* z_out,
                     T* zmax_out, T* qx_out, T* qy_out, T* comp_out, T* speeds,
-                    const T* dt, int rows, int cols, double dx, double dy,
-                    double vs, double qs, int simplified, void* stream) {
-  const dim3 grid((cols + BX - 1) / BX, (rows + BY - 1) / BY);
+                    const T* dt, int rows, int cols, int chunk, int grid_x,
+                    int grid_y, double dx, double dy, double vs, double qs,
+                    int simplified, void* stream) {
+  if (!swe::march_geometry_ok<1>(rows, cols, chunk, grid_x, grid_y)) {
+    return (int)cudaErrorInvalidValue;
+  }
   inertial_step_kernel<T, COMP>
-      <<<grid, dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+         (cudaStream_t)stream>>>(
           z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-          comp_out, speeds, dt, rows, cols, T(dx), T(dy), T(vs), T(qs),
-          simplified != 0);
+          comp_out, speeds, dt, rows, cols, chunk, T(dx), T(dy), T(vs),
+          T(qs), simplified != 0);
   return (int)cudaGetLastError();
 }
 
@@ -412,38 +482,40 @@ int godunov_step_f64(const double* z, const double* zmax, const double* qx,
       inv_dy, vs, qs, friction, simplified, stream);
 }
 
-// K4: the number of per-block partial maxima it writes for a grid.
-int inertial_step_partials(int rows, int cols) {
-  return ((cols + BX - 1) / BX) * ((rows + BY - 1) / BY);
-}
-
-// K4.  dx, dy: the spacings (the scheme divides by them).
+// K4.  chunk, grid_x, grid_y: ops/kernels/geometry.py march_geometry
+// (one halo lane); speeds holds grid_x * grid_y partial maxima.  dx, dy:
+// the spacings (the scheme divides by them).
 int inertial_step_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, const float* n,
                       const float* comp, float* z_out, float* zmax_out,
                       float* qx_out, float* qy_out, float* comp_out,
                       float* speeds, const float* dt, int rows, int cols,
-                      double dx, double dy, double vs, double qs,
-                      int simplified, void* stream) {
+                      int chunk, int grid_x, int grid_y, double dx,
+                      double dy, double vs, double qs, int simplified,
+                      void* stream) {
   if (comp != nullptr) {
     return launch_inertial<float, true>(
         z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs,
+        qs, simplified, stream);
   }
   return launch_inertial<float, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs, qs,
+      simplified, stream);
 }
 
 int inertial_step_f64(const double* z, const double* zmax, const double* qx,
                       const double* qy, const double* zb, const double* n,
                       double* z_out, double* zmax_out, double* qx_out,
                       double* qy_out, double* speeds, const double* dt,
-                      int rows, int cols, double dx, double dy, double vs,
-                      double qs, int simplified, void* stream) {
+                      int rows, int cols, int chunk, int grid_x, int grid_y,
+                      double dx, double dy, double vs, double qs,
+                      int simplified, void* stream) {
   return launch_inertial<double, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, dx, dy, vs, qs, simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs, qs,
+      simplified, stream);
 }
 
 }  // extern "C"

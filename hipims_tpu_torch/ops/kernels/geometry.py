@@ -1,14 +1,17 @@
-"""Launch geometry of the row-marching kernels: the Godunov step K1
-(``csrc/stencil.cu``) and the split12 MUSCL corrector K3
-(``csrc/muscl_split.cu``).
+"""Launch geometry of the row-marching kernels: the Godunov step K1 and
+the partial-inertial step K4 (``csrc/stencil.cu``), and the MUSCL
+corrector K3 (split12) and K5a-C (recompute) (``csrc/muscl_split.cu``).
 
-A block is ``WARPS`` warps side by side.  Each warp owns ``LANE_COLS``
-columns and loads 32, with a halo lane on either side, so a block owns a
-strip of ``STRIP`` columns (constants of ``csrc/march.cuh`` too); it
-marches down ``chunk`` rows.  The kernels compute where each lane works
-from the chunk and their block index (``csrc/march.cuh`` ``march_pos``);
-``lane_columns`` repeats that arithmetic so that the CPU tests can check
-the cover of the grid.  Nothing here needs a card.
+A block is ``WARPS`` warps side by side.  Each warp loads 32 columns and
+owns ``lane_cols(halo)`` of them, with ``halo`` halo lanes on either side,
+so a block owns a strip of ``strip(halo)`` columns (``csrc/march.cuh``
+computes both the same way); it marches down ``chunk`` rows.  K1, K3 and
+K4 take one halo lane, K5a-C two (its first owned lane's west face needs
+the slope of the column west of it, which needs one column more).  The
+kernels compute where each lane works from the chunk and their block
+index (``csrc/march.cuh`` ``march_pos``); ``lane_columns`` repeats that
+arithmetic so that the CPU tests can check the cover of the grid.
+Nothing here needs a card.
 """
 
 from __future__ import annotations
@@ -20,9 +23,20 @@ import numpy as np
 
 WARP = 32
 WARPS = 4                  # csrc/march.cuh MARCH_WARPS
-LANE_COLS = WARP - 2       # csrc/march.cuh LANE_COLS
-STRIP = WARPS * LANE_COLS  # csrc/march.cuh STRIP
 THREADS = WARPS * WARP
+HALOS = (1, 2)             # the halo widths the kernels take
+
+
+def lane_cols(halo: int) -> int:
+    """The columns a warp owns (csrc/march.cuh lane_cols)."""
+    return WARP - 2 * halo
+
+
+def strip(halo: int) -> int:
+    """The columns a block owns (csrc/march.cuh strip)."""
+    return WARPS * lane_cols(halo)
+
+
 # Rows per block: between CHUNK_MIN and CHUNK_MAX, as many as give about
 # TARGET_BLOCKS blocks, 40 per SM of an H100's 132.  An SM holds 6-7 of
 # these blocks in f32 (3-4 in f64: their registers bound it), so the grid
@@ -38,12 +52,14 @@ TARGET_BLOCKS = 40 * 132
 @dataclass(frozen=True)
 class MarchGeometry:
     """What a row-marching launch takes: the rows per block, and the grid
-    (strips, chunks) as (blockIdx.x, blockIdx.y)."""
+    (strips, chunks) as (blockIdx.x, blockIdx.y), for warps with ``halo``
+    halo lanes on either side."""
 
     rows: int
     cols: int
     chunk: int
     grid: tuple[int, int]
+    halo: int
 
     @property
     def partials(self) -> int:
@@ -67,21 +83,26 @@ class MarchGeometry:
         (before clamping) and whether it writes it."""
         t = np.arange(THREADS)
         lane = t % WARP
-        col = bx * STRIP + (t // WARP) * LANE_COLS + lane - 1
-        return col, (lane >= 1) & (lane <= LANE_COLS) & (col < self.cols)
+        h = self.halo
+        col = bx * strip(h) + (t // WARP) * lane_cols(h) + lane - h
+        return col, (lane >= h) & (lane < WARP - h) & (col < self.cols)
 
 
-def march_geometry(rows: int, cols: int, chunk: int | None = None):
-    """The geometry of a row-marching launch over a (rows, cols) grid;
-    ``chunk`` (rows per block) is chosen as the module's note says unless
-    given."""
+def march_geometry(rows: int, cols: int, chunk: int | None = None,
+                   halo: int = 1):
+    """The geometry of a row-marching launch over a (rows, cols) grid with
+    ``halo`` halo lanes per warp side; ``chunk`` (rows per block) is chosen
+    as the module's note says unless given."""
     if rows < 1 or cols < 1:
         raise ValueError(f"march_geometry: bad grid {rows}x{cols}")
-    strips = math.ceil(cols / STRIP)
+    if halo not in HALOS:
+        raise ValueError(f"march_geometry: halo must be one of {HALOS}, "
+                         f"got {halo}")
+    strips = math.ceil(cols / strip(halo))
     if chunk is None:
         per_strip = math.ceil(TARGET_BLOCKS / strips)
         chunk = min(CHUNK_MAX, max(CHUNK_MIN, math.ceil(rows / per_strip)))
     if chunk < 1:
         raise ValueError(f"march_geometry: chunk must be >= 1, got {chunk}")
     return MarchGeometry(rows, cols, chunk,
-                         (strips, math.ceil(rows / chunk)))
+                         (strips, math.ceil(rows / chunk)), halo)

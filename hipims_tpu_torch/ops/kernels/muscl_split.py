@@ -9,7 +9,8 @@ launch count:
 * ``muscl_predict_base``       K5a-P, variant "recompute": the 4 base planes;
 * ``muscl_correct``            K3: corrector on the 12 planes, row-marching
   (its launch geometry comes from ``geometry.march_geometry``);
-* ``muscl_correct_recompute``  K5a-C: corrector that rebuilds the slopes;
+* ``muscl_correct_recompute``  K5a-C: the same row-marching corrector, which
+  rebuilds each cell's slopes once from the state (two halo lanes);
 * ``muscl_fused``              K5b: the whole step in one kernel, which
   rebuilds the slopes and the half-step base state of five cells per cell
   (``stencil_step("muscl-hancock")``; no ``Simulation`` path takes it, as
@@ -47,18 +48,21 @@ from .geometry import march_geometry
 N_PRED = 12        # base(4) + sx(4) + sy(4)
 RING = 2           # MUSCL static ring width
 VARIANTS = ("split12", "recompute")
-# The rebuilding corrector's source of the predicted base planes and
-# slopes (csrc/muscl_split.cu CorrectMode).
-RECOMPUTE, FUSED = 1, 2
+# Where the corrector finds the slopes (csrc/muscl_split.cu SlopeSource):
+# K3 loads K2's 8 slope planes, K5a-C rebuilds them beside K5a-P's 4 base
+# planes; the predictor planes each takes, and its warps' halo lanes.
+LOADED, REBUILT = 0, 1
+CORRECTOR_PLANES = {LOADED: N_PRED, REBUILT: 4}
+CORRECTOR_HALO = {LOADED: 1, REBUILT: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
-_CORRECT_F32_ARGS = [_P] * 15 + [_I] * 5 + [_D] * 4 + [_I, _P]
-_CORRECT_F64_ARGS = [_P] * 13 + [_I] * 5 + [_D] * 4 + [_I, _P]
-_REBUILD_F32_ARGS = [_P] * 15 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
-_REBUILD_F64_ARGS = [_P] * 13 + [_I, _I] + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F32_ARGS = [_P] * 15 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F64_ARGS = [_P] * 13 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
+_FUSED_F32_ARGS = [_P] * 14 + [_I, _I] + [_D] * 4 + [_I, _P]
+_FUSED_F64_ARGS = [_P] * 12 + [_I, _I] + [_D] * 4 + [_I, _P]
 
 
 @functools.cache
@@ -71,9 +75,9 @@ def _lib():
                        ("muscl_predict_f64", _PREDICT_ARGS),
                        ("muscl_correct_f32", _CORRECT_F32_ARGS),
                        ("muscl_correct_f64", _CORRECT_F64_ARGS),
-                       ("muscl_rebuild_f32", _REBUILD_F32_ARGS),
-                       ("muscl_rebuild_f64", _REBUILD_F64_ARGS),
-                       ("muscl_rebuild_partials", [_I, _I])):
+                       ("muscl_fused_f32", _FUSED_F32_ARGS),
+                       ("muscl_fused_f64", _FUSED_F64_ARGS),
+                       ("muscl_fused_partials", [_I, _I])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = _I
@@ -169,15 +173,15 @@ def _check_step(who, state, static, pred, n_pred, dt, comp):
     beside the state; returns the planes' pointers, pred's last."""
     check_planes(who, [*state, *static] + ([comp] if comp is not None
                                            else []), dt, comp)
-    if n_pred:
-        want = (n_pred, *state.z.shape)
-        if (tuple(pred.shape) != want or pred.dtype != state.z.dtype
-                or pred.device != state.z.device
-                or not pred.is_contiguous()):
-            raise ValueError(f"{who}: the predictor planes must be one "
-                             f"contiguous {want} tensor beside the state")
-    return ([t.data_ptr() for t in (*state, *static)]
-            + [pred.data_ptr() if n_pred else None])
+    ptrs = [t.data_ptr() for t in (*state, *static)]
+    if not n_pred:
+        return ptrs
+    want = (n_pred, *state.z.shape)
+    if (tuple(pred.shape) != want or pred.dtype != state.z.dtype
+            or pred.device != state.z.device or not pred.is_contiguous()):
+        raise ValueError(f"{who}: the predictor planes must be one "
+                         f"contiguous {want} tensor beside the state")
+    return ptrs + [pred.data_ptr()]
 
 
 def _spacing(params):
@@ -185,27 +189,29 @@ def _spacing(params):
             params.quite_small, int(params.friction))
 
 
-def _correct_cuda(state, static, pred, dt, params, comp, chunk=None):
-    """Launch K3 on the row-marching geometry of its grid, ``chunk`` rows
-    per block unless ``geometry.march_geometry`` picks them."""
-    inputs = _check_step("muscl_correct", state, static, pred, N_PRED, dt,
-                         comp)
-    geom = march_geometry(*state.z.shape, chunk=chunk)
-    return launch_step(_lib(), "muscl_correct", "muscl_correct", inputs,
-                       state, comp, dt, geom.partials,
-                       (*state.z.shape, *geom.args(), *_spacing(params)))
+def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
+                  chunk=None):
+    """Launch the row-marching corrector, K3 (``slopes`` LOADED, K2's 12
+    planes) or K5a-C (REBUILT, K5a-P's 4 base planes), on the geometry of
+    its grid and halo, ``chunk`` rows per block unless
+    ``geometry.march_geometry`` picks them."""
+    who = "muscl_correct" if slopes == LOADED else "muscl_correct_recompute"
+    inputs = _check_step(who, state, static, pred, CORRECTOR_PLANES[slopes],
+                         dt, comp)
+    geom = march_geometry(*state.z.shape, chunk=chunk,
+                          halo=CORRECTOR_HALO[slopes])
+    return launch_step(_lib(), "muscl_correct", who, inputs, state, comp, dt,
+                       geom.partials, (*state.z.shape, *geom.args(),
+                                       *_spacing(params), slopes))
 
 
-def _rebuild_cuda(who, mode, state, static, pred, dt, params, comp):
-    """Launch the rebuilding corrector on its 32x8 grid: K5a-C (``mode``
-    RECOMPUTE, K5a-P's 4 base planes) or K5b (FUSED, ``pred`` None: it
-    rebuilds the base planes too)."""
-    inputs = _check_step(who, state, static, pred,
-                         4 if mode == RECOMPUTE else 0, dt, comp)
+def _fused_cuda(state, static, dt, params, comp):
+    """Launch K5b on its 32x8 grid: it rebuilds the predictor too."""
+    inputs = _check_step("muscl_fused", state, static, None, 0, dt, comp)
     lib = _lib()
-    return launch_step(lib, "muscl_rebuild", who, inputs, state, comp, dt,
-                       lib.muscl_rebuild_partials(*state.z.shape),
-                       (*state.z.shape, *_spacing(params), mode))
+    return launch_step(lib, "muscl_fused", "muscl_fused", inputs, state,
+                       comp, dt, lib.muscl_fused_partials(*state.z.shape),
+                       (*state.z.shape, *_spacing(params)))
 
 
 def muscl_predict(state: FlowState, static, dt, params: SchemeParams):
@@ -246,8 +252,8 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
     if not on_card("muscl_correct_recompute", state):
         return muscl_correct_plain(state, static, pred, dt, params,
                                    comp=comp)
-    out = _rebuild_cuda("muscl_correct_recompute", RECOMPUTE, state,
-                        static, pred, dt, params, comp)
+    out = _correct_cuda(state, static, pred, dt, params, comp,
+                        slopes=REBUILT)
     muscl_correct_recompute.launches += 1
     return out
 
@@ -262,8 +268,7 @@ def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
                          "simplified CFL speed")
     if not on_card("muscl_fused", state):
         return muscl_step_plain(state, static, dt, params, comp=comp)
-    out = _rebuild_cuda("muscl_fused", FUSED, state, static, None, dt,
-                        params, comp)
+    out = _fused_cuda(state, static, dt, params, comp)
     muscl_fused.launches += 1
     return out
 

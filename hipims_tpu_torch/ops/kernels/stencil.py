@@ -7,7 +7,8 @@ count and its own plain PyTorch version:
 * ``godunov_fused``   K1 (``csrc/stencil.cu``, row-marching: its launch
   geometry comes from ``geometry.march_geometry``), plain
   ``stencil_step_plain``;
-* ``inertial_fused``  K4 (``csrc/stencil.cu``), plain ``inertial_step_plain``;
+* ``inertial_fused``  K4 (``csrc/stencil.cu``, row-marching as K1), plain
+  ``inertial_step_plain``;
 * ``muscl_fused``     K5b (``csrc/muscl_split.cu``, wrapper in
   ``muscl_split.py``), plain ``muscl_step_plain``.
 
@@ -32,13 +33,13 @@ from .muscl_split import muscl_fused, muscl_step_plain
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# (f32, f64) signatures: K1 takes the march geometry (chunk, grid) and
-# friction, K4 neither.
+# (f32, f64) signatures: both take the march geometry (chunk, grid); K1
+# also takes friction, which is part of K4's scheme.
 _ARGS = {
     "godunov": ([_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _I, _P],
                 [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]),
-    "inertial": ([_P] * 14 + [_I] * 2 + [_D] * 4 + [_I, _P],
-                 [_P] * 12 + [_I] * 2 + [_D] * 4 + [_I, _P]),
+    "inertial": ([_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _P],
+                 [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _P]),
 }
 
 
@@ -53,8 +54,6 @@ def _lib():
             fn = getattr(lib, f"{scheme}_step_{suffix}")
             fn.argtypes = args
             fn.restype = _I
-    lib.inertial_step_partials.argtypes = [_I, _I]
-    lib.inertial_step_partials.restype = _I
     return lib
 
 
@@ -77,18 +76,18 @@ def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
                        comp, dt, geom.partials, args)
 
 
-def _inertial_cuda(state, static, dt, params, comp, simplified_speed):
-    """Launch K4 on its 32x8 grid."""
+def _inertial_cuda(state, static, dt, params, comp, simplified_speed,
+                   chunk=None):
+    """Launch K4 on the row-marching geometry of its grid, as K1."""
     check_planes("inertial step", _planes(state, static, comp), dt, comp)
-    lib = _lib()
+    geom = march_geometry(*state.z.shape, chunk=chunk)
     # K4 divides by the spacings, as the reference's inertial scheme does;
     # its friction is part of the scheme.
-    args = (*state.z.shape, params.dx, params.dy, params.very_small,
-            params.quite_small, int(simplified_speed))
-    return launch_step(lib, "inertial_step", "inertial step",
+    args = (*state.z.shape, *geom.args(), params.dx, params.dy,
+            params.very_small, params.quite_small, int(simplified_speed))
+    return launch_step(_lib(), "inertial_step", "inertial step",
                        [t.data_ptr() for t in (*state, *static)], state,
-                       comp, dt, lib.inertial_step_partials(*state.z.shape),
-                       args)
+                       comp, dt, geom.partials, args)
 
 
 def stencil_step_plain(state: FlowState, static, dt, params: SchemeParams,

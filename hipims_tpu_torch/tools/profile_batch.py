@@ -6,7 +6,8 @@ synchronisation), then runs one more batch under ``torch.profiler`` and
 prints the device's busy share of that batch and the device time of the
 TOP kernels per step.  Output events are not written.
 
-    python -m hipims_tpu_torch.tools.profile_batch -c model.xml
+    python -m hipims_tpu_torch.tools.profile_batch -c model.xml \
+        [--muscl-variant split12|recompute]
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ def _device_us(event):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-c", "--config", required=True)
+    ap.add_argument("--muscl-variant", choices=("split12", "recompute"),
+                    help="the MUSCL kernels (SimulationConfig.muscl_variant)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_batch: CUDA is not available", file=sys.stderr)
@@ -45,6 +48,7 @@ def main(argv=None) -> int:
 
     model = load_config(args.config)
     model.output_targets = []
+    model.config.muscl_variant = args.muscl_variant
     sim = model.simulation(device=torch.device("cuda", 0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

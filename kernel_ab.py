@@ -10,21 +10,27 @@ unpacked by ``git archive`` into a directory that .gitignore lists).  The
 script prints, for both trees, each kernel's registers, shared memory and
 spills (``nvcc -Xptxas -v`` on its source) and its static count of SASS
 instructions (``cuobjdump -sass``); then the per-step time of every
-kernel wrapper on chip_smoke's random domain at 2944 x 3072 cells in f32,
-f32c and f64, measured in turns (other, this, this, other), each turn a
-process of its own; then K1's and K3's times over chunk heights, in each
-tree that has the row-marching kernels.  With ``--profile`` it adds the
-in-situ time of K1 and K3 per steady step
-(``hipims_tpu_torch/tools/profile_batch.py``) on the pluvial model of
-chip_smoke phases 4 and 4b, both trees; with ``--walls`` the wall of
-chip_smoke phases 4 (the Godunov pluvial model) and 4e (the breach)
-through the CLI, output events included, in turns (other, this, this,
-other).  Each tree's turns import that tree's package and chip_smoke.py.
+kernel wrapper on chip_smoke's random domain at 2944 x 3072 and at 1408 x
+1408 cells in f32, f32c and f64, measured in turns (other, this, this,
+other), each turn a process of its own; K4 in the same turns on variants
+of that domain (as drawn, with one Manning value, with one per land-use
+patch of 5x7 or 10x10 cells, with no disabled cells) and on the phase-4d
+inertial model's own state; then this tree's row-marching kernels (K1,
+K3, K4, K5a-C) over chunk heights.  With ``--profile`` it adds the
+in-situ time per steady step of K1, K3, K4 and K5a-C
+(``hipims_tpu_torch/tools/profile_batch.py``) on the pluvial models of
+chip_smoke phases 4 (Godunov), 4b (MUSCL, split12), 4d (inertial) and 4c
+(MUSCL, recompute), both trees; with ``--walls`` the wall of chip_smoke
+phases 4 (the Godunov pluvial model) and 4e (the breach) through the CLI,
+output events included, in turns (other, this, this, other).  Each tree's
+turns import that tree's package; the inputs come from this checkout's
+chip_smoke.py, so both trees time the same inputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -34,6 +40,7 @@ import tempfile
 from pathlib import Path
 
 ROWS, COLS = 2944, 3072
+SIZES = ((ROWS, COLS), (1408, 1408))
 REPS = 50
 MODES = ("f32", "f32c", "f64")
 CHUNKS = (8, 12, 16, 24, 32, 64)
@@ -58,13 +65,35 @@ CALLS = {
     "muscl_correct_recompute": lambda st, ms, s, g, c, dt, p, pr:
         ms.muscl_correct_recompute(s, g, pr[1], dt, p, comp=c),
 }
-# K1 and K3 launched at a given chunk height (row-marching trees only).
+# This tree's row-marching kernels launched at a given chunk height.
 BY_CHUNK = {
     "godunov_fused": lambda st, ms, s, g, c, dt, p, pr, k: st._godunov_cuda(
         s, g, dt, p, c, False, chunk=k),
+    "inertial_fused": lambda st, ms, s, g, c, dt, p, pr, k:
+        st._inertial_cuda(s, g, dt, p, c, True, chunk=k),
     "muscl_correct": lambda st, ms, s, g, c, dt, p, pr, k: ms._correct_cuda(
         s, g, pr[0], dt, p, c, chunk=k),
+    "muscl_correct_recompute": lambda st, ms, s, g, c, dt, p, pr, k:
+        ms._correct_cuda(s, g, pr[1], dt, p, c, slopes=ms.REBUILT, chunk=k),
 }
+# K4's inputs, to find what sets its time on the random domain: the domain
+# as drawn (n per cell), with one Manning value (the pluvial model's), with
+# one value per land-use patch of 5x7 and of 10x10 cells, with no disabled
+# cells, and the phase-4d model's own state after K4_WARM_S simulated
+# seconds (timed alone, as the others).
+K4_VARIANTS = ("random", "one_manning", "patches_5x7", "patches_10x10",
+               "no_disabled", "model_state")
+K4_WARM_S = 150.0
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, which makes every input: both trees
+    of an A/B time the same inputs, whichever tree's package runs them."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_inputs", THIS / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _time_ms(torch, fn, reps=REPS):
@@ -82,45 +111,100 @@ def _time_ms(torch, fn, reps=REPS):
 
 
 def time_kernels(chunks=()):
-    """In the tree on sys.path: {kernel: {mode: ms}} for every wrapper, and
-    with ``chunks`` {chunk: {kernel: {mode: ms}}} for K1 and K3."""
-    import numpy as np
+    """In the tree on sys.path: {"ROWSxCOLS": {kernel: {mode: ms}}} for
+    every wrapper at each of SIZES, and with ``chunks`` {chunk: {kernel:
+    {mode: ms}}} for the row-marching kernels at ROWS x COLS."""
     import torch
 
-    from chip_smoke import random_domain
     from hipims_tpu_torch.ops.godunov import SchemeParams
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
     from hipims_tpu_torch.ops.kernels import stencil as st
+
+    params = SchemeParams(dx=2.0, dy=2.0)
+    out, by_chunk = {}, {}
+    for rows, cols in SIZES:
+        arrs = _smoke().random_domain(0, rows, cols)
+        size = out.setdefault(f"{rows}x{cols}", {})
+        for mode in MODES:
+            state, static, comp, dt = _on_card(torch, arrs, mode)
+            pred = (ms.muscl_predict(state, static, dt, params),
+                    ms.muscl_predict_base(state, static, dt, params))
+            for name, call in CALLS.items():
+                size.setdefault(name, {})[mode] = _time_ms(torch, lambda: call(
+                    st, ms, state, static, comp, dt, params, pred))
+            for chunk in chunks if (rows, cols) == (ROWS, COLS) else ():
+                for name, call in BY_CHUNK.items():
+                    by_chunk.setdefault(chunk, {}).setdefault(name, {})[
+                        mode] = _time_ms(torch, lambda: call(
+                            st, ms, state, static, comp, dt, params, pred,
+                            chunk))
+            del state, static, comp, pred
+            torch.cuda.empty_cache()
+    return out, by_chunk
+
+
+def _on_card(torch, arrs, mode, comp=None):
+    """(state, static, comp, dt) of numpy planes ``arrs`` in ``mode``; comp
+    is a small residue plane in f32c unless given."""
+    import numpy as np
+
     from hipims_tpu_torch.state import DomainStatic, FlowState
 
-    if not hasattr(st, "_godunov_cuda"):    # a tree before the row marching
-        chunks = ()
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    t = [torch.as_tensor(a, device="cuda").to(dtype) for a in arrs]
+    if mode == "f32c" and comp is None:
+        rng = np.random.default_rng(1)
+        comp = torch.as_tensor(rng.uniform(-1e-7, 1e-7, arrs[0].shape),
+                               device="cuda").to(dtype)
+    comp = comp if mode == "f32c" else None
+    dt = torch.tensor(0.05, dtype=dtype, device="cuda")
+    return FlowState(*t[:4]), DomainStatic(*t[4:]), comp, dt
+
+
+def time_k4_variants():
+    """In the tree on sys.path: {variant: {mode: ms}} of K4 on each of
+    K4_VARIANTS."""
+    import numpy as np
+    import torch
+
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.ops.godunov import SchemeParams
+    from hipims_tpu_torch.ops.kernels import stencil as st
+
+    smoke = _smoke()
     params = SchemeParams(dx=2.0, dy=2.0)
-    arrs = random_domain(0, ROWS, COLS)
-    out, by_chunk = {}, {}
-    for mode in MODES:
-        dtype = torch.float64 if mode == "f64" else torch.float32
-        t = [torch.as_tensor(a, device="cuda").to(dtype) for a in arrs]
-        comp = None
-        if mode == "f32c":
-            rng = np.random.default_rng(1)
-            comp = torch.as_tensor(rng.uniform(-1e-7, 1e-7, (ROWS, COLS)),
-                                   device="cuda").to(dtype)
-        dt = torch.tensor(0.05, dtype=dtype, device="cuda")
-        state, static = FlowState(*t[:4]), DomainStatic(*t[4:])
-        pred = (ms.muscl_predict(state, static, dt, params),
-                ms.muscl_predict_base(state, static, dt, params))
-        for name, call in CALLS.items():
-            out.setdefault(name, {})[mode] = _time_ms(torch, lambda: call(
-                st, ms, state, static, comp, dt, params, pred))
-        for chunk in chunks:
-            for name, call in BY_CHUNK.items():
-                by_chunk.setdefault(chunk, {}).setdefault(name, {})[mode] = (
-                    _time_ms(torch, lambda: call(st, ms, state, static, comp,
-                                                 dt, params, pred, chunk)))
-        del state, static, comp, pred, t
-        torch.cuda.empty_cache()
-    return out, by_chunk
+    drawn = smoke.random_domain(0, ROWS, COLS)
+    inputs = {
+        "random": (drawn, None),
+        "one_manning": ((*drawn[:5], np.full((ROWS, COLS),
+                                             smoke.ONE_MANNING)), None),
+        "patches_5x7": ((*drawn[:5], smoke.patch_manning(ROWS, COLS, 5, 7)),
+                        None),
+        "patches_10x10": ((*drawn[:5],
+                           smoke.patch_manning(ROWS, COLS, 10, 10)), None),
+        "no_disabled": (smoke.random_domain(0, ROWS, COLS,
+                                            disabled_fraction=0.0), None)}
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        model = load_config(smoke.write_glasgow_model(
+            tmp, ROWS, COLS, 600.0, 300.0, scheme="inertial"))
+        model.output_targets = []
+        sim = model.simulation(device=torch.device("cuda", 0))
+        sim.run_to(K4_WARM_S)
+        inputs["model_state"] = (
+            [a.double().cpu().numpy() for a in (*sim.state, *sim.static)],
+            sim.comp)
+        del sim
+    out = {}
+    for variant, (arrs, comp) in inputs.items():
+        for mode in MODES:
+            state, static, c, dt = _on_card(torch, arrs, mode, comp)
+            out.setdefault(variant, {})[mode] = _time_ms(
+                torch, lambda: st.stencil_step("inertial", state, static, dt,
+                                               params, comp=c,
+                                               simplified_speed=True))
+            del state, static, c
+            torch.cuda.empty_cache()
+    return out
 
 
 def time_walls():
@@ -231,46 +315,63 @@ def _demangle(name):
         return name
 
 
-def profile_in_situ(tree, root):
-    """``tools/profile_batch.py`` of ``tree`` on the Godunov and MUSCL
-    pluvial models of chip_smoke phases 4 and 4b (written under
-    ``root``); returns its lines."""
-    import chip_smoke
+# (XML scheme name, MUSCL variant): the models of chip_smoke phases 4, 4b,
+# 4d and 4c, whose steady steps launch K1, K2 + K3, K4 and K5a-P + K5a-C.
+IN_SITU = (("godunov", None), ("musclhancock", None), ("inertial", None),
+           ("musclhancock", "recompute"))
 
+
+def profile_in_situ(tree, root):
+    """``tools/profile_batch.py`` of ``tree`` on each model of IN_SITU
+    (written under ``root``); returns its lines, or the end of its error
+    where that tree's profile_batch cannot run a model."""
     lines = []
-    for scheme in ("godunov", "musclhancock"):
-        xml = chip_smoke.write_glasgow_model(Path(root) / scheme, ROWS, COLS,
-                                             600.0, 300.0, scheme=scheme)
+    for scheme, variant in IN_SITU:
+        label = f"{scheme} {variant or ''}".strip()
+        xml = _smoke().write_glasgow_model(
+            Path(root) / label.replace(" ", "_"), ROWS, COLS, 600.0, 300.0,
+            scheme=scheme)
         env = dict(os.environ, PYTHONPATH=str(tree))
         res = subprocess.run(
             [sys.executable, "-m", "hipims_tpu_torch.tools.profile_batch",
-             "-c", str(xml)], cwd=tree, env=env, capture_output=True,
-            text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"profile_batch failed in {tree}:\n"
-                               f"{res.stderr[-3000:]}")
-        lines += [f"  [{scheme}] {ln}" for ln in res.stdout.splitlines()]
+             "-c", str(xml), *(["--muscl-variant", variant] if variant
+                               else [])],
+            cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+        got = (res.stdout.splitlines() if res.returncode == 0 else
+               [f"profile_batch failed: {res.stderr.strip()[-300:]}"])
+        lines += [f"  [{label}] {ln}" for ln in got]
     return lines
 
 
-def _kernel_table(runs):
-    table = [f"per-step ms at {ROWS}x{COLS}, turns {', '.join(TURNS)} "
-             f"({REPS} launches each, CUDA events):"]
-    for name in CALLS:
+def _ab_rows(runs, pick, names, label_width=24):
+    """One line per (name, mode): both trees' turns and this/other."""
+    rows = []
+    for name in names:
         for mode in MODES:
-            o = [r["times"][name][mode] for lb, r in runs if lb == "other"]
-            t = [r["times"][name][mode] for lb, r in runs if lb == "this"]
-            table.append(f"  {name:24s} {mode:5s} other {o[0]:.4f} "
-                         f"{o[1]:.4f}  this {t[0]:.4f} {t[1]:.4f}  "
-                         f"this/other {sum(t) / sum(o):.3f}")
-    for label, got in runs[:2]:
-        if got["chunks"]:
-            table.append(f"{label} tree, K1 and K3 by chunk height (rows "
-                         "per block):")
-        for chunk, by_name in got["chunks"].items():
-            table.append(f"  chunk {chunk:>4}: " + "; ".join(
-                f"{n} " + " ".join(f"{m} {v:.4f}" for m, v in by.items())
-                for n, by in by_name.items()))
+            o = [pick(r)[name][mode] for lb, r in runs if lb == "other"]
+            t = [pick(r)[name][mode] for lb, r in runs if lb == "this"]
+            rows.append(f"  {name:{label_width}s} {mode:5s} other {o[0]:.4f} "
+                        f"{o[1]:.4f}  this {t[0]:.4f} {t[1]:.4f}  "
+                        f"this/other {sum(t) / sum(o):.3f}")
+    return rows
+
+
+def _kernel_table(runs):
+    table = []
+    for rows, cols in SIZES:
+        size = f"{rows}x{cols}"
+        table += [f"per-step ms at {size}, turns {', '.join(TURNS)} "
+                  f"({REPS} launches each, CUDA events):",
+                  *_ab_rows(runs, lambda r: r["times"][size], CALLS)]
+    table += ["K4 (inertial_fused) on its input variants, same turns:",
+              *_ab_rows(runs, lambda r: r["k4"], K4_VARIANTS)]
+    chunks = next(r["chunks"] for lb, r in runs if lb == "this")
+    table.append(f"this tree, the row-marching kernels at {ROWS}x{COLS} by "
+                 "chunk height (rows per block):")
+    for chunk, by_name in chunks.items():
+        table.append(f"  chunk {chunk:>4}: " + "; ".join(
+            f"{n} " + " ".join(f"{m} {v:.4f}" for m, v in by.items())
+            for n, by in by_name.items()))
     return table
 
 
@@ -278,7 +379,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="another checkout to compare with")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile K1 and K3 in situ, both trees")
+                    help="also profile K1, K3, K4 and K5a-C in situ, both "
+                         "trees")
     ap.add_argument("--walls", action="store_true",
                     help="also time chip_smoke phases 4 and 4e, in turns")
     ap.add_argument("--time", action="store_true",
@@ -296,7 +398,8 @@ def main(argv=None) -> int:
         return 2
     if args.time:
         out, by_chunk = time_kernels(CHUNKS if args.chunks else ())
-        print(json.dumps({"times": out, "chunks": by_chunk}))
+        print(json.dumps({"times": out, "chunks": by_chunk,
+                          "k4": time_k4_variants()}))
         return 0
     if args.wall:
         print(json.dumps(time_walls()))
@@ -314,9 +417,9 @@ def main(argv=None) -> int:
         print("\n".join([f"ptxas, {label} tree:", *ptxas_report(tree)]),
               flush=True)
 
-    # The chunk sweep runs in each tree's first turn.
+    # The chunk sweep runs in this tree's first turn.
     runs = [(label, _run_in(trees[label], ["--time"]
-                            + (["--chunks"] if turn < 2 else [])))
+                            + (["--chunks"] if turn == 1 else [])))
             for turn, label in enumerate(TURNS)]
     print("\n".join(_kernel_table(runs)), flush=True)
     if args.profile:

@@ -169,3 +169,18 @@ def test_kernels_record():
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
         assert (r["bound_ms"], r["bound_by"]) == chip_smoke.kernel_bound(
             r["name"], "f32c", rows * cols, 0.25)
+
+
+@pytest.mark.parametrize("patch", [(5, 7), (10, 10)])
+def test_patch_manning_is_constant_per_patch(patch):
+    """One Manning value per land-use patch, inside random_domain's range,
+    and different across patch edges (K4's two branches in one warp)."""
+    pr, pc = patch
+    n = chip_smoke.patch_manning(23, 41, pr, pc)
+    assert n.shape == (23, 41) and n.flags.c_contiguous
+    assert ((n >= 0.01) & (n <= 0.06)).all()
+    for r0 in range(0, 23, pr):
+        for c0 in range(0, 41, pc):
+            block = n[r0:r0 + pr, c0:c0 + pc]
+            assert (block == block[0, 0]).all()
+    assert (n[:, pc] != n[:, pc - 1]).any() and (n[pr] != n[pr - 1]).any()

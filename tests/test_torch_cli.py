@@ -163,3 +163,19 @@ def test_raster_write_byte_equal(tmp_path, fmt):
     np.testing.assert_array_equal(back.data, want.data)
     assert (back.xll, back.yll, back.cell_size, back.nodata) == \
         (want.xll, want.yll, want.cell_size, want.nodata)
+
+
+def test_profile_batch_takes_the_muscl_variant(tmp_path, capsys):
+    """profile_batch runs a MUSCL model with either variant on the card;
+    without one it stops before loading the model."""
+    from hipims_tpu_torch.tools import profile_batch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    xml = write_glasgow_model(tmp_path, 8, 8, 60.0, 30.0,
+                              scheme="musclhancock")
+    assert profile_batch.main(["-c", str(xml), "--muscl-variant",
+                               "recompute"]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        profile_batch.main(["-c", str(xml), "--muscl-variant", "fused"])

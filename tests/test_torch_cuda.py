@@ -11,14 +11,15 @@ inputs are the adversarial wet/dry random domain of chip_smoke.py, made
 with numpy from a seed.  Tolerances: float64 to 1e-12 (bit-equal is
 expected under --fmad=false), float32 to rtol 1e-5 / atol 1e-6, and the
 true surface z + comp to 1e-6.  At the ragged shapes every kernel is held
-to its plain version bit for bit (torch.equal).
+to its plain version bit for bit (torch.equal), K4 under three layouts of
+the Manning n, and the recompute chain to split12.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_domain
+from chip_smoke import ONE_MANNING, patch_manning, random_domain
 from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import muscl_split as ms
 from hipims_tpu_torch.ops.kernels import stencil as st
@@ -26,18 +27,36 @@ from hipims_tpu_torch.state import DomainStatic, FlowState
 
 MODES = ["f64", "f32", "f32c"]
 PARAMS = SchemeParams(2.0, 2.0)
-# Ragged shapes: all ring for K3 (3x3), one strip of the row-marching
-# kernels or less, several chunks, and (65, 121), one row past a chunk and
-# one column past a strip (tests/test_torch_geometry.py).
-RAGGED = [(3, 3), (5, 5), (4, 37), (33, 65), (130, 97), (65, 121)]
+# Ragged shapes: all ring for K3 and K5a-C (3x3), one strip of the
+# row-marching kernels or less, several chunks, (65, 121), one row past a
+# chunk and one column past a strip of the one-lane halo (K1, K3, K4), and
+# (65, 113), the same for the two-lane halo of K5a-C, whose warps own 28
+# columns (tests/test_torch_geometry.py).
+RAGGED = [(3, 3), (5, 5), (4, 37), (33, 65), (130, 97), (65, 121),
+          (65, 113)]
+# K4's Manning layouts beside random_domain's one value per cell (never
+# shared; test_kernels_bit_equal_at_ragged_shapes): one value (each face's
+# discharge shared by its two cells), one value per 5x7 patch and one per
+# 10x10 patch (shared inside a patch, not across its edges: both branches
+# in one warp).
+MANNING = ["one", "patches", "blocks"]
 
 
-def _inputs(mode, rows=32, cols=128):
+def _manning(layout, rows, cols):
+    if layout == "one":
+        return np.full((rows, cols), ONE_MANNING)
+    return patch_manning(rows, cols, *{"patches": (5, 7),
+                                       "blocks": (10, 10)}[layout])
+
+
+def _inputs(mode, rows=32, cols=128, manning=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dtype = torch.float64 if mode == "f64" else torch.float32
-    t = [torch.as_tensor(a, device="cuda").to(dtype)
-         for a in random_domain(0, rows, cols)]
+    arrs = list(random_domain(0, rows, cols))
+    if manning is not None:
+        arrs[5] = _manning(manning, rows, cols)
+    t = [torch.as_tensor(a, device="cuda").to(dtype) for a in arrs]
     comp = None
     if mode == "f32c":
         rng = np.random.default_rng(1)
@@ -138,10 +157,27 @@ def test_muscl_kernels_match_plain(variant, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", RAGGED)
 @pytest.mark.parametrize("mode", MODES)
-def test_muscl_variants_equal_on_card(mode):
-    """The recompute corrector rebuilds exactly the slopes K2 stores."""
-    state, static, comp, dt = _inputs(mode)
+@pytest.mark.parametrize("manning", MANNING)
+def test_k4_bit_equal_by_manning_layout(manning, mode, shape):
+    """K4 computes a face's shared flow once and applies each cell's n to
+    it, sharing the whole discharge where the two cells' n agree; either
+    way it equals its plain version bit for bit."""
+    state, static, comp, dt = _inputs(mode, *shape, manning=manning)
+    got, want = _plain_and_kernel("K4", state, static, comp, dt)
+    for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128), *RAGGED])
+@pytest.mark.parametrize("mode", MODES)
+def test_muscl_variants_equal_on_card(mode, shape):
+    """The recompute corrector rebuilds exactly the slopes K2 stores:
+    split12 (K2 -> K3) and recompute (K5a-P -> K5a-C, two halo lanes) give
+    the same bits, fields, max speed and comp."""
+    state, static, comp, dt = _inputs(mode, *shape)
     a = ms.muscl_step_split(state, static, dt, PARAMS, "split12", comp)
     b = ms.muscl_step_split(state, static, dt, PARAMS, "recompute", comp)
     for x, y in zip([*a[0], a[1], *a[2:]], [*b[0], b[1], *b[2:]]):
@@ -190,28 +226,58 @@ def _plain_and_kernel(name, state, static, comp, dt):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", ["K1", "K3", "K4", "K5a-C", "K5b"])
 def test_kernels_bit_equal_at_ragged_shapes(name, mode, shape):
-    """The row-marching K1 and K3, and K4, K5a-C and K5b on their own
-    launch paths, equal their plain versions bit for bit: fields, max
-    speed and comp."""
+    """The row-marching K1, K3, K4 and K5a-C, and K5b on its own launch
+    path, equal their plain versions bit for bit: fields, max speed and
+    comp."""
     state, static, comp, dt = _inputs(mode, *shape)
     got, want = _plain_and_kernel(name, state, static, comp, dt)
     for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
         assert torch.equal(g, w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", ["K1", "K3"])
-def test_nan_reaches_the_max_speed(name, mode):
-    """A NaN Manning n in one wet interior cell makes that cell's
-    discharge NaN through friction while its depth stays finite; the
-    kernel's max speed is NaN, as the plain version's."""
+def _nan_manning_inputs(mode):
+    """_inputs at 33x65 with a NaN Manning n in one wet interior cell;
+    returns them and that cell."""
     state, static, comp, dt = _inputs(mode, 33, 65)
     depth = (state.z - static.zb).cpu().numpy()
     wet = np.argwhere(depth[2:-2, 2:-2] > 0.5) + 2
     r, c = (int(v) for v in wet[len(wet) // 2])
     manning = static.manning.clone()
     manning[r, c] = float("nan")
-    static = DomainStatic(static.zb, manning)
-    got, want = _plain_and_kernel(name, state, static, comp, dt)
+    return (state, DomainStatic(static.zb, manning), comp, dt), (r, c)
+
+
+def _assert_bit_equal_nan(got, want):
+    for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["K1", "K3", "K5a-C"])
+def test_nan_reaches_the_max_speed(name, mode):
+    """A NaN Manning n in one wet interior cell turns that cell's
+    discharge NaN through friction while its depth stays finite, so the
+    kernel's max speed is NaN, as the plain version's; kernel and plain
+    version agree bit for bit, NaN for NaN."""
+    inputs, _ = _nan_manning_inputs(mode)
+    got, want = _plain_and_kernel(name, *inputs)
+    _assert_bit_equal_nan(got, want)
     assert torch.isnan(want[1]) and torch.isnan(got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_k4_nan_manning_stays_out_of_the_max_speed(mode):
+    """K4 with a NaN Manning n in one wet interior cell: every wet face of
+    that cell carries its n, so its surface and discharges turn NaN (its
+    neighbours, whose n differs, apply their own).  The sqrt(g h) speed
+    counts a cell as wet only where h > qs, which a NaN depth is not, so
+    the NaN stays in the state and the max speed is finite, in the plain
+    version as in the JAX package's max_wave_speed.  Kernel and plain
+    version agree bit for bit, NaN for NaN."""
+    inputs, (r, c) = _nan_manning_inputs(mode)
+    got, want = _plain_and_kernel("K4", *inputs)
+    _assert_bit_equal_nan(got, want)
+    assert torch.isnan(got[0].z[r, c]) and torch.isnan(want[0].z[r, c])
+    assert not torch.isnan(got[1]) and not torch.isnan(want[1])

@@ -1,8 +1,9 @@
-"""The launch geometry of the row-marching kernels K1 and K3
-(hipims_tpu_torch/ops/kernels/geometry.py), on the CPU: every cell is
-written by exactly one lane of one block, the partials buffer has one slot
-per block, the main paths' grid fills an H100 several times over, and the
-constants that csrc/march.cuh repeats agree."""
+"""The launch geometry of the row-marching kernels K1, K3, K4 (one halo
+lane per warp side) and K5a-C (two) (hipims_tpu_torch/ops/kernels/
+geometry.py), on the CPU: at either halo width every cell is written by
+exactly one lane of one block, the partials buffer has one slot per block,
+the main paths' grid fills an H100 several times over, and the constants
+that csrc/march.cuh repeats agree."""
 
 import re
 from pathlib import Path
@@ -18,8 +19,10 @@ H100_SMS = 132
 # (rows, cols): the card tests' shapes, chip_smoke's cases, and shapes one
 # more than a chunk or strip multiple.
 SHAPES = [(3, 3), (4, 4), (5, 5), (4, 37), (33, 65), (130, 97), (65, 121),
-          (32, 128), (1408, 1408), (1409, 1411), (2944, 3072), (2945, 3073),
-          (3000, 3100), (17, 241), (3, 3100), (3000, 3), (1297, 1441)]
+          (65, 113), (32, 128), (1408, 1408), (1409, 1411), (2944, 3072),
+          (2945, 3073), (3000, 3100), (17, 241), (3, 3100), (3000, 3),
+          (1297, 1441), (1297, 1681)]
+HALOS = pytest.mark.parametrize("halo", G.HALOS)
 
 
 def _cover(geom):
@@ -45,77 +48,111 @@ def _check(geom):
     assert (rows == 1).all() and (cols == 1).all()
     # What the C launchers accept (csrc/march.cuh march_geometry_ok).
     chunk, gx, gy = geom.args()
-    assert chunk >= 1 and G.STRIP == G.LANE_COLS * G.WARPS
-    assert gx * G.STRIP >= geom.cols and gy * chunk >= geom.rows
+    strip = G.strip(geom.halo)
+    assert chunk >= 1 and strip == G.lane_cols(geom.halo) * G.WARPS
+    assert gx * strip >= geom.cols and gy * chunk >= geom.rows
     assert gy <= 65535
 
 
+@HALOS
 @pytest.mark.parametrize("rows,cols", SHAPES)
-def test_every_cell_written_once(rows, cols):
-    _check(G.march_geometry(rows, cols))
+def test_every_cell_written_once(rows, cols, halo):
+    _check(G.march_geometry(rows, cols, halo=halo))
 
 
+@HALOS
 @pytest.mark.parametrize("chunk", [1, 2, 7, 16, 64, 200])
-def test_every_cell_written_once_any_chunk(chunk):
-    for rows, cols in ((3, 3), (65, 121), (130, 97), (1409, 1411)):
-        geom = G.march_geometry(rows, cols, chunk=chunk)
-        assert geom.chunk == chunk
+def test_every_cell_written_once_any_chunk(chunk, halo):
+    for rows, cols in ((3, 3), (65, 121), (65, 113), (130, 97),
+                       (1409, 1411)):
+        geom = G.march_geometry(rows, cols, chunk=chunk, halo=halo)
+        assert geom.chunk == chunk and geom.halo == halo
         _check(geom)
 
 
 @settings(max_examples=60, deadline=None)
 @given(rows=hs.integers(3, 3000), cols=hs.integers(3, 3100),
-       chunk=hs.one_of(hs.none(), hs.integers(1, 300)))
-def test_every_cell_written_once_drawn(rows, cols, chunk):
-    _check(G.march_geometry(rows, cols, chunk=chunk))
+       chunk=hs.one_of(hs.none(), hs.integers(1, 300)),
+       halo=hs.sampled_from(G.HALOS))
+def test_every_cell_written_once_drawn(rows, cols, chunk, halo):
+    _check(G.march_geometry(rows, cols, chunk=chunk, halo=halo))
 
 
+@HALOS
 @pytest.mark.parametrize("rows,cols", SHAPES)
-def test_one_partials_slot_per_block(rows, cols):
+def test_one_partials_slot_per_block(rows, cols, halo):
     """block_max_store writes block (bx, by) to slot by * grid_x + bx: the
     slots are distinct and fill the buffer the wrapper allocates."""
-    geom = G.march_geometry(rows, cols)
+    geom = G.march_geometry(rows, cols, halo=halo)
     gx, gy = geom.grid
     slots = {by * gx + bx for by in range(gy) for bx in range(gx)}
     assert geom.partials == gx * gy == len(slots)
     assert slots == set(range(geom.partials))
 
 
-def test_ragged_card_shape_is_one_past_chunk_and_strip():
-    """The card tests' ragged shape (65, 121) ends one row past a chunk
-    and one column past a strip."""
-    geom = G.march_geometry(65, 121)
-    assert 65 % geom.chunk == 1 and 121 % G.STRIP == 1
-    assert geom.grid == (2, 65 // geom.chunk + 1)
+@pytest.mark.parametrize("halo,shape", [(1, (65, 121)), (2, (65, 113))])
+def test_ragged_card_shape_is_one_past_chunk_and_strip(halo, shape):
+    """The card tests' ragged shapes end one row past a chunk and one
+    column past a strip: (65, 121) of the one-lane halo, (65, 113) of the
+    two-lane halo, also one column past a warp's 28."""
+    rows, cols = shape
+    geom = G.march_geometry(rows, cols, halo=halo)
+    assert rows % geom.chunk == 1 and cols % G.strip(halo) == 1
+    assert cols % G.lane_cols(halo) == 1
+    assert geom.grid == (2, rows // geom.chunk + 1)
 
 
-def test_chip_smoke_ragged_case_is_one_past_chunk_and_strip():
+@HALOS
+def test_chip_smoke_ragged_case_is_one_past_chunk_and_strip(halo):
+    """chip_smoke's ragged case ends one row past a chunk and one column
+    past a strip of either geometry."""
     import chip_smoke
 
-    (rows, cols), = [c[:2] for c in chip_smoke.CASES if c[:2] == (1297, 1441)]
-    geom = G.march_geometry(rows, cols)
-    assert rows % geom.chunk == 1 and cols % G.STRIP == 1
+    (rows, cols), = [c[:2] for c in chip_smoke.CASES if c[:2] == (1297, 1681)]
+    geom = G.march_geometry(rows, cols, halo=halo)
+    assert rows % geom.chunk == 1 and cols % G.strip(halo) == 1
 
 
-def test_main_path_grid_fills_the_card():
+@HALOS
+def test_main_path_grid_fills_the_card(halo):
     """At the main paths' 2944 x 3072 the grid gives at least 4 blocks per
     SM of an H100."""
-    geom = G.march_geometry(2944, 3072)
+    geom = G.march_geometry(2944, 3072, halo=halo)
     assert geom.partials >= 4 * H100_SMS
     assert G.CHUNK_MIN <= geom.chunk <= G.CHUNK_MAX
 
 
 def test_rejects_bad_grids():
-    for rows, cols, chunk in ((0, 5, None), (5, 0, None), (5, 5, 0)):
+    for rows, cols, chunk, halo in ((0, 5, None, 1), (5, 0, None, 1),
+                                    (5, 5, 0, 1), (5, 5, None, 0),
+                                    (5, 5, None, 3)):
         with pytest.raises(ValueError):
-            G.march_geometry(rows, cols, chunk=chunk)
+            G.march_geometry(rows, cols, chunk=chunk, halo=halo)
 
 
 def test_constants_match_march_header():
     header = (Path(G.__file__).parents[2] / "csrc" / "march.cuh").read_text()
     found = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", header))
     assert int(found["MARCH_WARPS"]) == G.WARPS
-    assert int(found["LANE_COLS"]) == G.LANE_COLS == G.WARP - 2
     assert found["MARCH_THREADS"] == "32 * MARCH_WARPS"
-    assert found["STRIP"] == "LANE_COLS * MARCH_WARPS"
     assert G.THREADS == 32 * G.WARPS
+    flat = " ".join(header.split())
+    assert ("constexpr int lane_cols(int halo) { return 32 - 2 * halo; }"
+            in flat)
+    assert ("constexpr int strip(int halo) { return lane_cols(halo) * "
+            "MARCH_WARPS; }" in flat)
+    assert [G.lane_cols(h) for h in G.HALOS] == [30, 28]
+    assert [G.strip(h) for h in G.HALOS] == [120, 112]
+
+
+def test_corrector_halos_match_muscl_source():
+    """K3 takes one halo lane and K5a-C two, in the wrapper and in
+    csrc/muscl_split.cu corrector_halo."""
+    from hipims_tpu_torch.ops.kernels import muscl_split as ms
+
+    src = Path(G.__file__).parents[2] / "csrc" / "muscl_split.cu"
+    flat = " ".join(src.read_text().split())
+    assert "return slopes == REBUILT ? 2 : 1;" in flat
+    assert "enum SlopeSource { LOADED = 0, REBUILT = 1 };" in flat
+    assert (ms.LOADED, ms.REBUILT) == (0, 1)
+    assert ms.CORRECTOR_HALO == {ms.LOADED: 1, ms.REBUILT: 2}
