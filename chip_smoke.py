@@ -19,7 +19,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 3b. the same for the four split MUSCL kernels (all 12 predictor planes,
    then the corrector's fields), and the split12 chain (K2 -> K3) against
    the recompute chain (K5a-P -> K5a-C);
-3c. the same for K4 (partial-inertial) and K5b (the fused MUSCL step),
+3c. the same for K4 (partial-inertial) and K5b (the whole MUSCL step:
+   the row-marching corrector with slopes and base predicted in it),
    K4 also with one Manning value over the domain (where neighbours share
    a face's drag) and with one per 5x7 patch, and K5b against the split12
    chain;
@@ -673,21 +674,22 @@ def _main_path_line(label, rows, cols, duration, res, smi):
 # comp plane read and written in f32c where the kernel takes it.
 # Operations: estimates, counted by hand from the CUDA sources (not from
 # the SASS), one per add, subtract, multiply, divide, min/max, compare,
-# sqrt, exp or log, rounded to tens: ``fixed`` for every cell (K1, K3 and
-# K5a-C at two face solves per cell, ~120 operations each, the work the
-# step needs; their first designs solved four), and ``second`` for each
-# second-order predictor evaluation (predict_cell, or a rebuilt slope
-# vector in K5a-C: the cell's own sx and sy), of which a cell makes
-# ``evals``; first-order cells skip that work.  Over PEAK_OPS_PER_S,
-# which counts an FMA as two operations, the time is a loose lower bound:
-# the kernels are built with --fmad=false, so each add and multiply
-# issues alone, and a divide, sqrt, exp or log takes several
-# instructions.
+# sqrt, exp or log, rounded to tens: ``fixed`` for every cell (K1, K3,
+# K5a-C and K5b at two face solves per cell, ~120 operations each, the
+# work the step needs, whatever implements it; their first designs solved
+# four), and ``second`` for each second-order predictor evaluation
+# (predict_cell, one per second-order cell in K2, K5a-P and K5b; or a
+# rebuilt slope vector in K5a-C: the cell's own sx and sy), of which a
+# cell makes ``evals``; first-order cells skip that work.  Over
+# PEAK_OPS_PER_S, which counts an FMA as two operations, the time is a
+# loose lower bound: the kernels are built with --fmad=false, so each add
+# and multiply issues alone, and a divide, sqrt, exp or log takes several
+# instructions.  At these counts every kernel is bound by its bytes.
 # name: (planes in, planes out, takes comp, fixed, second, evals)
 KERNEL_COST = {
     "godunov_fused": (6, 4, True, 380, 0, 0),
     "inertial_fused": (6, 4, True, 160, 0, 0),
-    "muscl_fused": (6, 4, True, 550, 180, 5),
+    "muscl_fused": (6, 4, True, 420, 180, 1),
     "muscl_predict": (5, 12, False, 10, 180, 1),
     "muscl_predict_base": (5, 4, False, 10, 180, 1),
     "muscl_correct": (18, 4, True, 420, 0, 0),

@@ -3,6 +3,9 @@
 Usage:
     python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
 
+The reference's own command line (``-c model.xml -m -x dir -s``) runs
+too: ``-m`` and ``-x`` are accepted and ignored, each with a note.
+
 Runs on the first CUDA device unless ``--platform cpu`` is given, in which
 case the plain PyTorch versions of the kernels run on the CPU.
 """
@@ -27,6 +30,11 @@ def parse_args(argv=None):
                     help="no user feedback (-s is the reference's alias)")
     ap.add_argument("--disable-screen", "-n", action="store_true",
                     help="plain line-by-line progress output")
+    ap.add_argument("--mpi-mode", "-m", action="store_true",
+                    help="accepted for reference compatibility (ignored)")
+    ap.add_argument("--code-dir", "-x", default=None,
+                    help="accepted for reference compatibility; there is "
+                         "no OpenCL code to locate (ignored)")
     ap.add_argument("--platform", choices=("gpu", "cpu"), default="gpu",
                     help="gpu (default: the first CUDA device) or cpu "
                          "(plain PyTorch versions of the kernels)")
@@ -54,6 +62,11 @@ def main(argv=None):
 
     log = Logger(path=args.log_file, quiet=args.quiet_mode)
     log.block("Model configuration")
+    if args.mpi_mode:
+        log.line("note: --mpi-mode is a no-op here; multi-process runs "
+                 "use --distributed (rank gating is automatic)")
+    if args.code_dir:
+        log.line("note: --code-dir ignored (no OpenCL sources to locate)")
     unported = [f"--{k.replace('_', '-')}" for k in
                 ("mesh", "mesh_shape", "distributed", "checkpoint", "resume")
                 if getattr(args, k) is not None]

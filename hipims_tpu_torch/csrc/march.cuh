@@ -1,16 +1,16 @@
 // Launch geometry and lane-to-lane exchange of the row-marching kernels:
 // the Godunov step K1 and the partial-inertial step K4 (stencil.cu), and
-// the MUSCL corrector in its two forms, K3 (split12) and K5a-C (recompute)
-// (muscl_split.cu).
+// the MUSCL corrector in its three forms, K3 (split12), K5a-C (recompute)
+// and K5b (the whole step) (muscl_split.cu).
 //
 // A block is MARCH_WARPS warps side by side.  Each warp loads 32 columns
 // and owns the lane_cols(HALO) = 32 - 2 HALO in the middle: the HALO lanes
 // on either side load the columns just west and just east of the strip and
 // write nothing.  So a warp needs no other warp's data, its x faces move
 // between lanes by shuffles, and the march holds no __syncthreads.  K1, K3
-// and K4 take one halo lane (30 owned columns); K5a-C takes two (28), since
-// its first owned lane's west face needs the slope of the column west of
-// it, which needs one column more.  The block owns strip(HALO) =
+// and K4 take one halo lane (30 owned columns); K5a-C and K5b take two
+// (28), since their first owned lane's west face needs the slope of the
+// column west of it, which needs one column more.  The block owns strip(HALO) =
 // lane_cols(HALO) * MARCH_WARPS columns and marches down ``chunk`` rows,
 // keeping each row's north face as the next row's south face.  The Python
 // function hipims_tpu_torch/ops/kernels/geometry.py::march_geometry picks

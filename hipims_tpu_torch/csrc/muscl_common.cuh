@@ -1,6 +1,7 @@
 // Device functions of the MUSCL-Hancock kernels: the MINMOD limiter, the
 // limited slope vector, the predictor's first-order mask and face fluxes,
-// and the whole predictor of one cell.
+// its half step from a cell's own slopes, and the whole predictor of one
+// cell.
 //
 // Line-for-line transcriptions of hipims_tpu_torch/ops/limiters.py and
 // ops/muscl.py, under the rules of swe_common.cuh (same operation order,
@@ -117,6 +118,43 @@ __device__ __forceinline__ Flux3<T> flux_y(const Quad<T>& f, T vs) {
   return Flux3<T>{f.qy, v * f.qx, v * f.qy + face_pressure(f)};
 }
 
+// The predictor's half step of one second-order cell from its own state
+// alone: base0 = (z, z - zb, qx, qy) of the cell, zb its bed, sx and sy its
+// limited slopes.  The four face extrapolations, their fluxes, the two
+// sources and the half-dt update of ops/muscl.py::muscl_predictor_base_slopes;
+// it reads no neighbour.  half_dt is 0.5 * dt.  The x terms are formed
+// before the y terms, so fewer values are live at once (each value's
+// operations and their order are those of the plain version).
+template <typename T>
+__device__ __forceinline__ Quad<T> half_step_base(const Quad<T>& base0, T zb,
+                                                  const Quad<T>& sx,
+                                                  const Quad<T>& sy,
+                                                  T half_dt, T inv_dx,
+                                                  T inv_dy, T vs) {
+  const Quad<T> ex_e0 = extrap(base0, sx, T(0.5));
+  const Quad<T> ex_w0 = extrap(base0, sx, T(-0.5));
+  const Flux3<T> fe = flux_x(ex_e0, vs);
+  const Flux3<T> fw = flux_x(ex_w0, vs);
+  const T src_x = T(-GRAVITY * 0.5) * (ex_e0.z + ex_w0.z) *
+                  ((ex_e0.z - ex_e0.h) - (ex_w0.z - ex_w0.h)) * inv_dx;
+  const T gx_m = (fe.m - fw.m) * inv_dx;
+  const T gx_x = (fe.x - fw.x) * inv_dx;
+  const T gx_y = (fe.y - fw.y) * inv_dx;
+  const Quad<T> ex_n0 = extrap(base0, sy, T(0.5));
+  const Quad<T> ex_s0 = extrap(base0, sy, T(-0.5));
+  const Flux3<T> fn = flux_y(ex_n0, vs);
+  const Flux3<T> fs = flux_y(ex_s0, vs);
+  const T src_y = T(-GRAVITY * 0.5) * (ex_n0.z + ex_s0.z) *
+                  ((ex_n0.z - ex_n0.h) - (ex_s0.z - ex_s0.h)) * inv_dy;
+  const T d_z = round_small(gx_m + (fn.m - fs.m) * inv_dy, vs);
+  const T d_qx = round_small(gx_x + (fn.x - fs.x) * inv_dy - src_x, vs);
+  const T d_qy = round_small(gx_y + (fn.y - fs.y) * inv_dy - src_y, vs);
+
+  const T z_half = base0.z - half_dt * d_z;
+  return Quad<T>{z_half, z_half - zb, base0.qx - half_dt * d_qx,
+                 base0.qy - half_dt * d_qy};
+}
+
 // ops/muscl.py::muscl_predictor_base_slopes for the one cell i of the
 // one-ring interior: its half-step base state (z, h, qx, qy) and its
 // limited slopes sx and sy.  A first-order cell keeps its state as base and
@@ -127,39 +165,16 @@ __device__ __forceinline__ void predict_cell(
     const T* __restrict__ qx, const T* __restrict__ qy,
     const T* __restrict__ zb, int64_t i, int cols, T half_dt, T inv_dx,
     T inv_dy, T vs, Quad<T>& base, Quad<T>& sx_out, Quad<T>& sy_out) {
-  const T zc = z[i], zbc = zb[i], qxc = qx[i], qyc = qy[i];
-  base = Quad<T>{zc, zc - zbc, qxc, qyc};
+  const T zbc = zb[i];
+  base = Quad<T>{z[i], z[i] - zbc, qx[i], qy[i]};
   sx_out = Quad<T>{T(0), T(0), T(0), T(0)};
   sy_out = sx_out;
   if (cell_first_order(z, zmax, zb, i, cols)) return;
 
-  const Quad<T> sx = cell_slope(z, zb, qx, qy, i, 1, vs);
-  const Quad<T> sy = cell_slope(z, zb, qx, qy, i, cols, vs);
-  const Quad<T> ex_n0 = extrap(base, sy, T(0.5));
-  const Quad<T> ex_e0 = extrap(base, sx, T(0.5));
-  const Quad<T> ex_s0 = extrap(base, sy, T(-0.5));
-  const Quad<T> ex_w0 = extrap(base, sx, T(-0.5));
-  const Flux3<T> fn = flux_y(ex_n0, vs);
-  const Flux3<T> fe = flux_x(ex_e0, vs);
-  const Flux3<T> fs = flux_y(ex_s0, vs);
-  const Flux3<T> fw = flux_x(ex_w0, vs);
-
-  const T src_x = T(-GRAVITY * 0.5) * (ex_e0.z + ex_w0.z) *
-                  ((ex_e0.z - ex_e0.h) - (ex_w0.z - ex_w0.h)) * inv_dx;
-  const T src_y = T(-GRAVITY * 0.5) * (ex_n0.z + ex_s0.z) *
-                  ((ex_n0.z - ex_n0.h) - (ex_s0.z - ex_s0.h)) * inv_dy;
-  const T d_z =
-      round_small((fe.m - fw.m) * inv_dx + (fn.m - fs.m) * inv_dy, vs);
-  const T d_qx = round_small(
-      (fe.x - fw.x) * inv_dx + (fn.x - fs.x) * inv_dy - src_x, vs);
-  const T d_qy = round_small(
-      (fe.y - fw.y) * inv_dx + (fn.y - fs.y) * inv_dy - src_y, vs);
-
-  const T z_half = zc - half_dt * d_z;
-  base = Quad<T>{z_half, z_half - zbc, qxc - half_dt * d_qx,
-                 qyc - half_dt * d_qy};
-  sx_out = sx;
-  sy_out = sy;
+  sx_out = cell_slope(z, zb, qx, qy, i, 1, vs);
+  sy_out = cell_slope(z, zb, qx, qy, i, cols, vs);
+  base = half_step_base(base, zbc, sx_out, sy_out, half_dt, inv_dx, inv_dy,
+                        vs);
 }
 
 }  // namespace swe

@@ -1,6 +1,6 @@
 // MUSCL-Hancock as two kernels: the half-step predictor (K2, and K5a-P
 // without slopes) and the corrector with its CFL partial max (K3, and K5a-C
-// that recomputes the slopes); and as one kernel (K5b) that runs the whole
+// that rebuilds the slopes); and as one kernel (K5b) that runs the whole
 // step.
 //
 // Replaces the split Pallas kernels of hipims_tpu/ops/pallas/muscl_split.py
@@ -20,16 +20,15 @@
 //     placeholder (z, z - zb, qx, qy) and zero slopes;
 //   * corrector, per cell outside the two-cell ring: its own four faces
 //     and the facing faces of its four neighbours, each base +- 0.5 slope,
-//     with the slopes loaded (K3) or rebuilt from the radius-2 state
-//     neighbourhood (K5a-C), or, in K5b, the predictor of all five cells run
-//     inline from the state; the four MUSCL interfaces
-//     (swe_common.cuh), datum terms and sources, the update (Neumaier
-//     comp_add when COMP), implicit friction, the dry clamp (judged on
-//     z + comp when COMP) BEFORE the max-FSL update, and the skips:
-//     disabled cell, a dry centre whose four neighbours have zmax below the
-//     threshold (a reference quirk), dt <= 0; the two-cell ring keeps its
-//     values; then the CFL speed of every cell of the new state, reduced to
-//     one partial max per block.
+//     with the slopes loaded (K3), rebuilt from the radius-2 state
+//     neighbourhood (K5a-C), or rebuilt and the base predicted from them
+//     (K5b); the four MUSCL interfaces (swe_common.cuh), datum terms and
+//     sources, the update (Neumaier comp_add when COMP), implicit friction,
+//     the dry clamp (judged on z + comp when COMP) BEFORE the max-FSL
+//     update, and the skips: disabled cell, a dry centre whose four
+//     neighbours have zmax below the threshold (a reference quirk),
+//     dt <= 0; the two-cell ring keeps its values; then the CFL speed of
+//     every cell of the new state, reduced to one partial max per block.
 //
 // What bounds them on an H100: device memory traffic.  Planes moved per
 // step (predictor in + out, then corrector in + out):
@@ -43,28 +42,22 @@
 // K5b 0.108 / 0.130 / 0.216 ms.  These are lower bounds derived from the
 // plane counts, not measurements.  Measured on one H100 80GB HBM3 at a
 // 700 W power limit (PERF.md), the predictors reach ~60% of that bandwidth
-// and K3 ~59% (41% before its redesign), but K5a-C only ~19%: rebuilding
-// ten slope vectors per cell, not memory, bounded its first design, so
-// split12 was the faster pair on this card despite moving more bytes; the
-// row-marching K5a-C rebuilds two per cell.  K5b, with five
-// predictor evaluations and four MUSCL HLLC solves per cell, is bound by its
-// arithmetic even more.
+// and K3 ~59%, but the correctors that rebuild slopes are bound by their
+// instruction streams, not by memory (K5a-C ~29%).
 //
-// Design.  K3 and K5a-C are one row-marching kernel with one solve per
-// face, as K1 (stencil.cu, march.cuh), templated on where a row's slopes
-// come from: LOADED (K3, the 8 slope planes K2 stores) or REBUILT (K5a-C,
-// from a window of the state's rows); its note stands above
+// Design.  K3, K5a-C and K5b are one row-marching kernel with one solve
+// per face, as K1 (stencil.cu, march.cuh), templated on where a row's
+// slopes and base come from: LOADED (K3, the 8 slope planes K2 stores),
+// REBUILT (K5a-C, the slopes from a window of the state's rows, beside
+// K5a-P's base planes) or PREDICTED (K5b, the slopes rebuilt so and the
+// base computed from them in registers); its note stands above
 // muscl_correct_kernel below.  The face solves, datum terms, update,
-// friction, dry clamp, skips and CFL partial are one body, so split12 and
-// recompute are bit-equal by construction.  K2, K5a-P and K5b keep the
-// first, simple design until their own redesigns: one thread per cell on
-// 32x8 blocks, neighbours read through L1/L2, every face solved by both of
-// its cells (bit-identical under --fmad=false), dt read on the device
-// through a pointer.  K5b runs the predictor of each of its five cells
-// inline (predict_cell), so it shares every line of arithmetic with K2 and
-// the corrector and is bit-equal to the split chains.  Shared-memory tiles
-// (each cell's predictor run once per block, not five times) are later
-// work.
+// friction, dry clamp, skips and CFL partial are one body, and K5b's half
+// step is predict_cell's own (half_step_base), so split12, recompute and
+// K5b are bit-equal by construction.  K2 and K5a-P keep the first, simple
+// design: one thread per cell on 32x8 blocks, neighbours read through
+// L1/L2, dt read on the device through a pointer; both reach over half of
+// their bytes bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,17 +119,21 @@ __global__ void __launch_bounds__(BX * BY)
 }
 
 // K3, the split12 corrector, replaces hipims_tpu/ops/pallas/muscl_split.py
-// ::_corrector_kernel, and K5a-C, the recompute corrector, replaces
-// _corrector_recompute_kernel.  What bounds them on an H100: K3 reads 18
-// planes (the 12 predictor planes, z, zmax, qx, qy, zb, n) and writes 4,
-// 88 B/cell in f32 (96 B/cell in f32c, with comp read and written),
-// 176 B/cell in f64: at 3.35 TB/s no less than 0.238 / 0.259 / 0.475 ms for
-// 9.04 M cells.  K5a-C reads 10 (the 4 base planes and the state) and
-// writes 4: 56 / 64 / 112 B/cell, 0.151 / 0.173 / 0.302 ms.  The step needs
-// two MUSCL HLLC solves per cell (three IEEE divisions and two square
-// roots each, --fmad=false), and K5a-C two limited slope vectors; the first
-// designs solved four faces per cell, K5a-C rebuilding six slope vectors
-// for them, through L1.
+// ::_corrector_kernel; K5a-C, the recompute corrector, replaces
+// _corrector_recompute_kernel; K5b, the whole step, replaces
+// hipims_tpu/ops/pallas/stencil.py::_kernel with scheme "muscl-hancock".
+// What bounds them on an H100: K3 reads 18 planes (the 12 predictor
+// planes, z, zmax, qx, qy, zb, n) and writes 4, 88 B/cell in f32 (96 B/cell
+// in f32c, with comp read and written), 176 B/cell in f64: at 3.35 TB/s no
+// less than 0.238 / 0.259 / 0.475 ms for 9.04 M cells.  K5a-C reads 10 (the
+// 4 base planes and the state) and writes 4: 56 / 64 / 112 B/cell, 0.151 /
+// 0.173 / 0.302 ms.  K5b reads the 6 state planes and writes 4: 40 / 48 /
+// 80 B/cell, 0.108 / 0.130 / 0.216 ms.  The step needs two MUSCL HLLC
+// solves per cell (three IEEE divisions and two square roots each,
+// --fmad=false); K5a-C and K5b two limited slope vectors, and K5b one
+// predictor half step per second-order cell.  The first designs solved
+// four faces per cell through L1, K5a-C rebuilding six slope vectors for
+// them and K5b running the predictor five times.
 //
 // Row marching, one solve per face (march.cuh), as K1: each warp owns the
 // middle columns of a chunk of rows and reads each row of each plane once,
@@ -151,27 +148,33 @@ __global__ void __launch_bounds__(BX * BY)
 // reference quirk) reads a ballot and the rows kept.  The solves and their
 // argument order are those of the plain version, so the bits do not change.
 //
-// K5a-C rebuilds each cell's slopes once, in the row where the march first
-// needs them, as the TPU kernel rebuilds them once per tile from a radius-2
-// row window: a lane rebuilds its own cell's sx and sy and first-order flag
-// from its E/W neighbours (shuffles) and the rows it keeps.  The north face
-// needs the next row's south estimate, hence that row's sy, so the march
-// keeps the state of rows r and r+1 and loads row r+2 ahead (the base
-// planes only row r+1); a chunk starts from rows r0-2 .. r0+1, so that its
-// first south face can be built.  The west face of a warp's first owned
-// lane needs the slope of the column west of it, which needs one column
-// more: K5a-C takes two halo lanes on either side (28 owned columns), K3
-// one (30).  Rebuilt slopes are zero on first-order cells and on the
-// one-cell edge ring, as K2 stores them.
+// K5a-C and K5b rebuild each cell's slopes once, in the row where the march
+// first needs them, as the TPU kernels rebuild them once per tile from a
+// radius-2 row window: a lane rebuilds its own cell's sx and sy and
+// first-order flag from its E/W neighbours (shuffles) and the rows it
+// keeps.  K5b then runs the predictor's half step on them (half_step_base,
+// muscl_common.cuh, shared with predict_cell): it reads only the cell's
+// own state and slopes, so it needs no shuffle and no wider halo.  The
+// north face needs the next row's south estimate, hence that row's sy (and
+// in K5b its base), so the march keeps the state of rows r and r+1 and
+// loads row r+2 ahead (K5a-C's base planes only row r+1); a chunk starts
+// from rows r0-2 .. r0+1, so that its first south face can be built.  The
+// west face of a warp's first owned lane needs the slope of the column
+// west of it, which needs one column more: K5a-C and K5b take two halo
+// lanes on either side (28 owned columns), K3 one (30).  Rebuilt slopes
+// are zero, and a predicted base is the placeholder (z, z - zb, qx, qy), on
+// first-order cells and on the one-cell edge ring, as K2 stores them.
 
-// Where the corrector finds a row's limited slopes: LOADED, the 8 slope
-// planes after K2's 4 base planes (K3); REBUILT, from the state's rows,
-// beside K5a-P's 4 base planes (K5a-C).
-enum SlopeSource { LOADED = 0, REBUILT = 1 };
+// Where the corrector finds a row's limited slopes and base state: LOADED,
+// the 8 slope planes after K2's 4 base planes (K3); REBUILT, the slopes
+// from the state's rows, beside K5a-P's 4 base planes (K5a-C); PREDICTED,
+// the slopes and the base both from the state's rows, with no predictor
+// plane (K5b).
+enum SlopeSource { LOADED = 0, REBUILT = 1, PREDICTED = 2 };
 
 // The halo lanes on either side of a corrector's warp (march.cuh).
 __host__ __device__ constexpr int corrector_halo(int slopes) {
-  return slopes == REBUILT ? 2 : 1;
+  return slopes == LOADED ? 1 : 2;
 }
 
 // One lane's column in one row, as the corrector's faces need it: the
@@ -214,18 +217,32 @@ __device__ __forceinline__ bool on_edge_ring(int r, int c, int rows,
   return (r <= 0) || (r >= rows - 1) || (c <= 0) || (c >= cols - 1);
 }
 
-// K5a-C: a row's face inputs from its base and its state row c, with the
-// state rows s (south) and nr (north) beside it: the cell's limited slopes
-// as predict_cell stores them (muscl_common.cuh), zero on a first-order
-// cell or on the edge ring.  The E/W neighbours come by shuffle, so every
-// lane must call it.
+// The step's scalars a rebuilt row needs: the predictor's half dt (0.5 *
+// dt, as K2 forms it) and the spacing, for PREDICTED; and vs.
 template <typename T>
-__device__ __forceinline__ PredRow<T> rebuilt_row(const swe::Quad<T>& base,
+struct RowScalars {
+  T half_dt, inv_dx, inv_dy, vs;
+};
+
+// K5a-C and K5b: a row's face inputs from its state row c, with the state
+// rows s (south) and nr (north) beside it: the cell's limited slopes as
+// predict_cell stores them (muscl_common.cuh), zero on a first-order cell
+// or on the edge ring; and its base, ``loaded`` (REBUILT, from K5a-P's
+// planes) or computed here (PREDICTED): half_step_base of the cell's own
+// state and slopes, or, where the slopes are zero by that rule, the
+// placeholder (z, z - zb, qx, qy), as K2 stores them.  The E/W neighbours
+// come by shuffle, so every lane must call it.
+template <int SLOPES, typename T>
+__device__ __forceinline__ PredRow<T> rebuilt_row(const swe::Quad<T>& loaded,
                                                   const StateRow<T>& s,
                                                   const StateRow<T>& c,
                                                   const StateRow<T>& nr,
-                                                  bool edge, T vs) {
+                                                  bool edge,
+                                                  const RowScalars<T>& k) {
   using namespace swe;
+  static_assert(SLOPES == REBUILT || SLOPES == PREDICTED,
+                "a LOADED row comes from load_pred_row");
+  const T vs = k.vs;
   const T z_e = from_east(c.z), zb_e = from_east(c.zb);
   const T qx_e = from_east(c.qx), qy_e = from_east(c.qy);
   const T z_w = from_west(c.z), zb_w = from_west(c.zb);
@@ -243,6 +260,14 @@ __device__ __forceinline__ PredRow<T> rebuilt_row(const swe::Quad<T>& base,
       flat ? zero
            : slope_vector(s.z, s.zb, s.qx, s.qy, c.z, c.zb, c.qx, c.qy, nr.z,
                           nr.zb, nr.qx, nr.qy, vs);
+  Quad<T> base = loaded;
+  if constexpr (SLOPES == PREDICTED) {
+    base = Quad<T>{c.z, c.z - c.zb, c.qx, c.qy};
+    if (!flat) {
+      base = half_step_base(base, c.zb, sx, sy, k.half_dt, k.inv_dx,
+                            k.inv_dy, vs);
+    }
+  }
   return PredRow<T>{base, sx, sy, c.qx, c.qy, c.zmax};
 }
 
@@ -278,8 +303,11 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
   const T dt = *dt_ptr;
 
   // The chunk's first south face, from the row before it (a clamped copy
-  // for the first chunk, whose first rows are edge ring).  K5a-C keeps the
-  // state of rows r and r+1 (s_0, s_1) for the next row's slopes.
+  // for the first chunk, whose first rows are edge ring).  K5a-C and K5b
+  // keep the state of rows r and r+1 (s_0, s_1) for the next row's slopes
+  // (and K5b for its base).
+  const RowScalars<T> k{T(0.5) * dt, inv_dx, inv_dy, vs};
+  const Quad<T> no_base{T(0), T(0), T(0), T(0)};
   PredRow<T> before, cur;
   StateRow<T> s_0, s_1;
   if constexpr (SLOPES == LOADED) {
@@ -296,12 +324,16 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                          march_index(p.r0, rows, cols, p.cc));
     s_1 = load_state_row(z, zb, qx, qy, zmax,
                          march_index(p.r0 + 1, rows, cols, p.cc));
-    before = rebuilt_row(
-        load_quad(pred, plane, march_index(p.r0 - 1, rows, cols, p.cc)),
-        s_m2, s_m1, s_0, on_edge_ring(p.r0 - 1, p.c, rows, cols), vs);
-    cur = rebuilt_row(
-        load_quad(pred, plane, march_index(p.r0, rows, cols, p.cc)), s_m1,
-        s_0, s_1, on_edge_ring(p.r0, p.c, rows, cols), vs);
+    Quad<T> base_before = no_base, base_cur = no_base;
+    if constexpr (SLOPES == REBUILT) {
+      base_before =
+          load_quad(pred, plane, march_index(p.r0 - 1, rows, cols, p.cc));
+      base_cur = load_quad(pred, plane, march_index(p.r0, rows, cols, p.cc));
+    }
+    before = rebuilt_row<SLOPES>(base_before, s_m2, s_m1, s_0,
+                                 on_edge_ring(p.r0 - 1, p.c, rows, cols), k);
+    cur = rebuilt_row<SLOPES>(base_cur, s_m1, s_0, s_1,
+                              on_edge_ring(p.r0, p.c, rows, cols), k);
   }
   Face<T> fs = muscl_north_face(before, cur, vs);
   bool low_s = before.zmax < vs;
@@ -310,16 +342,21 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
   for (int r = p.r0; r < p.r_end; ++r) {
     const int64_t i = march_index(r, rows, cols, p.cc);
     // In flight while this row's x face is solved: the next row's face
-    // inputs (K3), or its base and the state row after it (K5a-C).
+    // inputs (K3), or the state row after it and, for K5a-C, the next
+    // row's base.  K5b builds the next row before the x face: its half step
+    // then runs while no face is live, which keeps it within 166 registers
+    // in f64 (3 blocks per SM) with no spill; after the x face, it spilled.
     PredRow<T> next;
-    Quad<T> base_next;
+    Quad<T> base_next = no_base;
     StateRow<T> s_2;
     if constexpr (SLOPES == LOADED) {
       next = load_pred_row(pred, plane, qx, qy, zmax,
                            march_index(r + 1, rows, cols, p.cc));
     } else {
-      base_next =
-          load_quad(pred, plane, march_index(r + 1, rows, cols, p.cc));
+      if constexpr (SLOPES == REBUILT) {
+        base_next =
+            load_quad(pred, plane, march_index(r + 1, rows, cols, p.cc));
+      }
       s_2 = load_state_row(z, zb, qx, qy, zmax,
                            march_index(r + 2, rows, cols, p.cc));
     }
@@ -333,6 +370,10 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
     }
     const T n_c = friction ? n[i] : T(0);
     const T comp_c = COMP ? comp[i] : T(0);
+    if constexpr (SLOPES == PREDICTED) {
+      next = rebuilt_row<SLOPES>(base_next, s_0, s_1, s_2,
+                                 on_edge_ring(r + 1, p.c, rows, cols), k);
+    }
 
     // x faces: this lane's east face against the west estimate of the lane
     // to its east, and its west face from the lane to its west; along = qx.
@@ -345,8 +386,8 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
     const Face<T> fw = face_from_west(fe, p.lane);
     // y faces: the north face; the south face is the row before's north.
     if constexpr (SLOPES == REBUILT) {
-      next = rebuilt_row(base_next, s_0, s_1, s_2,
-                         on_edge_ring(r + 1, p.c, rows, cols), vs);
+      next = rebuilt_row<SLOPES>(base_next, s_0, s_1, s_2,
+                                 on_edge_ring(r + 1, p.c, rows, cols), k);
     }
     const Face<T> fn = muscl_north_face(cur, next, vs);
     const bool low_c = cur.zmax < vs;
@@ -436,162 +477,12 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
     fs = fn;
     low_s = low_c;
     cur = next;
-    if constexpr (SLOPES == REBUILT) {
+    if constexpr (SLOPES != LOADED) {
       s_0 = s_1;
       s_1 = s_2;
     }
   }
   block_max_store<T, MARCH_THREADS>(spd, speeds);
-}
-
-// K5b: the whole MUSCL-Hancock step per cell, the predictor of the cell and
-// of its four neighbours run inline from the state (predict_cell), then the
-// corrector's four faces; it reads no predictor plane.
-template <typename T, bool COMP>
-__global__ void __launch_bounds__(BX * BY)
-    muscl_fused_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
-                       const T* __restrict__ qx, const T* __restrict__ qy,
-                       const T* __restrict__ zb, const T* __restrict__ n,
-                       const T* __restrict__ comp, T* __restrict__ z_out,
-                       T* __restrict__ zmax_out, T* __restrict__ qx_out,
-                       T* __restrict__ qy_out, T* __restrict__ comp_out,
-                       T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                       int rows, int cols, T inv_dx, T inv_dy, T vs, T qs,
-                       bool friction) {
-  using namespace swe;
-  const int c = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  const bool inside = (r < rows) && (c < cols);
-  T spd = T(0);
-
-  if (inside) {
-    const int64_t i = int64_t(r) * cols + c;
-    const T zc = z[i];
-    const T zmax_c = zmax[i];
-    const T qx_c0 = qx[i];
-    const T qy_c0 = qy[i];
-    const T zbc = zb[i];
-    T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
-    T comp_o = T(0);
-    if (COMP) comp_o = comp[i];
-
-    const bool ring = (r < 2) || (r >= rows - 2) || (c < 2) ||
-                      (c >= cols - 2);
-    if (!ring) {
-      const T dt = *dt_ptr;
-      const int64_t ie = i + 1, iw = i - 1, in = i + cols, is = i - cols;
-
-      // The base state and slopes of the cell and of its four neighbours.
-      const T half_dt = T(0.5) * dt;
-      Quad<T> base, base_e, base_w, base_n, base_s;
-      Quad<T> sx, sy, sx_e, sx_w, sy_n, sy_s, unused;
-#define PREDICT(cell, b, s_x, s_y) \
-  predict_cell(z, zmax, qx, qy, zb, cell, cols, half_dt, inv_dx, inv_dy, vs, \
-               b, s_x, s_y)
-      PREDICT(i, base, sx, sy);
-      PREDICT(ie, base_e, sx_e, unused);
-      PREDICT(iw, base_w, sx_w, unused);
-      PREDICT(in, base_n, unused, sy_n);
-      PREDICT(is, base_s, unused, sy_s);
-#undef PREDICT
-      // Own faces, and the facing face of each neighbour.
-      const Quad<T> ex_n = extrap(base, sy, T(0.5));
-      const Quad<T> ex_e = extrap(base, sx, T(0.5));
-      const Quad<T> ex_s = extrap(base, sy, T(-0.5));
-      const Quad<T> ex_w = extrap(base, sx, T(-0.5));
-      const Quad<T> w_of_e = extrap(base_e, sx_e, T(-0.5));
-      const Quad<T> e_of_w = extrap(base_w, sx_w, T(0.5));
-      const Quad<T> s_of_n = extrap(base_n, sy_n, T(-0.5));
-      const Quad<T> n_of_s = extrap(base_s, sy_s, T(0.5));
-
-      const T qx_e = qx[ie], qx_w = qx[iw], qx_n = qx[in], qx_s = qx[is];
-      const T qy_e = qy[ie], qy_w = qy[iw], qy_n = qy[in], qy_s = qy[is];
-      // x faces: along = qx; y faces: along = qy.
-      const Face<T> fe = solve_interface_muscl(
-          ex_e.z, ex_e.h, ex_e.qx, ex_e.qy, w_of_e.z, w_of_e.h, w_of_e.qx,
-          w_of_e.qy, qx_c0, qx_e, qy_c0, qy_e, vs);
-      const Face<T> fw = solve_interface_muscl(
-          e_of_w.z, e_of_w.h, e_of_w.qx, e_of_w.qy, ex_w.z, ex_w.h, ex_w.qx,
-          ex_w.qy, qx_w, qx_c0, qy_w, qy_c0, vs);
-      const Face<T> fn = solve_interface_muscl(
-          ex_n.z, ex_n.h, ex_n.qy, ex_n.qx, s_of_n.z, s_of_n.h, s_of_n.qy,
-          s_of_n.qx, qy_c0, qy_n, qx_c0, qx_n, vs);
-      const Face<T> fs = solve_interface_muscl(
-          n_of_s.z, n_of_s.h, n_of_s.qy, n_of_s.qx, ex_s.z, ex_s.h, ex_s.qy,
-          ex_s.qx, qy_s, qy_c0, qx_s, qx_c0, vs);
-
-      // Local datum from the cell's own face-extrapolated surface.
-      T zbl_e, c_e, zbl_w, c_w, zbl_n, c_n, zbl_s, c_s;
-      local_datum(ex_e.z, fe.zbm, zbl_e, c_e);
-      local_datum(ex_w.z, fw.zbm, zbl_w, c_w);
-      local_datum(ex_n.z, fn.zbm, zbl_n, c_n);
-      local_datum(ex_s.z, fs.zbm, zbl_s, c_s);
-
-      const T zf_e = fe.hr + zbl_e;
-      const T zf_w = fw.hl + zbl_w;
-      const T zf_n = fn.hr + zbl_n;
-      const T zf_s = fs.hl + zbl_s;
-      const T src_x =
-          T(-GRAVITY * 0.5) * (zf_e + zf_w) * (zbl_e - zbl_w) * inv_dx;
-      const T src_y =
-          T(-GRAVITY * 0.5) * (zf_n + zf_s) * (zbl_n - zbl_s) * inv_dy;
-
-      const T d_z = round_small(
-          (fe.mass - fw.mass) * inv_dx + (fn.mass - fs.mass) * inv_dy, vs);
-      const T d_qx = round_small(((fe.along + c_e) - (fw.along + c_w)) *
-                                         inv_dx +
-                                     (fn.cross - fs.cross) * inv_dy - src_x,
-                                 vs);
-      const T d_qy = round_small((fe.cross - fw.cross) * inv_dx +
-                                     ((fn.along + c_n) - (fs.along + c_s)) *
-                                         inv_dy -
-                                     src_y,
-                                 vs);
-
-      const bool stop = fe.stop_l || fw.stop_r || fn.stop_l || fs.stop_r;
-      const T qx_c = stop ? T(0) : qx_c0;
-      const T qy_c = stop ? T(0) : qy_c0;
-      T z_new, comp_new = T(0);
-      if (COMP) {
-        comp_add(zc, comp_o, -(dt * d_z), z_new, comp_new);
-      } else {
-        z_new = zc - dt * d_z;
-      }
-      T qx_new = qx_c - dt * d_qx;
-      T qy_new = qy_c - dt * d_qy;
-
-      if (friction) {
-        implicit_friction(z_new, qx_new, qy_new, zbc, n[i],
-                          clamp_min(dt, vs), vs);
-      }
-
-      // Dry clamp BEFORE the max-FSL update (the reverse of K1).
-      const bool dry_new =
-          COMP ? ((z_new - zbc) + comp_new < vs) : (z_new - zbc < vs);
-      z_new = dry_new ? zbc : z_new;
-      const T zmax_new =
-          ((z_new > zmax_c) && (zmax_c > T(-9990.0))) ? z_new : zmax_c;
-
-      const bool disabled = (zmax_c <= T(NODATA)) || (zc == T(NODATA));
-      const bool dry5 = (zc - zbc < vs) && (zmax[in] < vs) &&
-                        (zmax[is] < vs) && (zmax[ie] < vs) && (zmax[iw] < vs);
-      const bool keep = disabled || dry5 || (dt <= T(0));
-      if (!keep) {
-        z_o = z_new;
-        zmax_o = zmax_new;
-        qx_o = qx_new;
-        qy_o = qy_new;
-        if (COMP) comp_o = dry_new ? T(0) : comp_new;
-      }
-    }
-    z_out[i] = z_o;
-    zmax_out[i] = zmax_o;
-    qx_out[i] = qx_o;
-    qy_out[i] = qy_o;
-    if (COMP) comp_out[i] = comp_o;
-    spd = cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false);
-  }
-  block_max_store<T, BX * BY>(spd, speeds);
 }
 
 dim3 grid_of(int rows, int cols) {
@@ -661,20 +552,6 @@ int correct_from(const T* z, const T* zmax, const T* qx, const T* qy,
   return -1;
 }
 
-template <typename T, bool COMP>
-int fused(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
-          const T* n, const T* comp, T* z_out, T* zmax_out, T* qx_out,
-          T* qy_out, T* comp_out, T* speeds, const T* dt, int rows, int cols,
-          double inv_dx, double inv_dy, double vs, double qs, int friction,
-          void* stream) {
-  muscl_fused_kernel<T, COMP>
-      <<<grid_of(rows, cols), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-          comp_out, speeds, dt, rows, cols, T(inv_dx), T(inv_dy), T(vs),
-          T(qs), friction != 0);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Each function returns the CUDA error code of its launch (0 = success;
@@ -738,40 +615,40 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
       inv_dy, vs, qs, friction, slopes, stream);
 }
 
-// K5b: the number of per-block partial maxima it writes.
-int muscl_fused_partials(int rows, int cols) {
-  const dim3 g = grid_of(rows, cols);
-  return int(g.x * g.y);
-}
-
-// K5b: the whole step from the state.
+// K5b: the whole step from the state, the corrector with slopes and base
+// PREDICTED (no predictor plane).  chunk, grid_x, grid_y: march_geometry
+// with two halo lanes, as K5a-C.
 int muscl_fused_f32(const float* z, const float* zmax, const float* qx,
                     const float* qy, const float* zb, const float* n,
                     const float* comp, float* z_out, float* zmax_out,
                     float* qx_out, float* qy_out, float* comp_out,
                     float* speeds, const float* dt, int rows, int cols,
-                    double inv_dx, double inv_dy, double vs, double qs,
-                    int friction, void* stream) {
+                    int chunk, int grid_x, int grid_y, double inv_dx,
+                    double inv_dy, double vs, double qs, int friction,
+                    void* stream) {
   if (comp != nullptr) {
-    return fused<float, true>(z, zmax, qx, qy, zb, n, comp, z_out, zmax_out,
-                              qx_out, qy_out, comp_out, speeds, dt, rows,
-                              cols, inv_dx, inv_dy, vs, qs, friction, stream);
+    return correct<float, true, PREDICTED>(
+        z, zmax, qx, qy, zb, n, nullptr, comp, z_out, zmax_out, qx_out,
+        qy_out, comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+        inv_dx, inv_dy, vs, qs, friction, stream);
   }
-  return fused<float, false>(z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out,
-                             qx_out, qy_out, nullptr, speeds, dt, rows, cols,
-                             inv_dx, inv_dy, vs, qs, friction, stream);
+  return correct<float, false, PREDICTED>(
+      z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
+      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, stream);
 }
 
 int muscl_fused_f64(const double* z, const double* zmax, const double* qx,
                     const double* qy, const double* zb, const double* n,
                     double* z_out, double* zmax_out, double* qx_out,
                     double* qy_out, double* speeds, const double* dt,
-                    int rows, int cols, double inv_dx, double inv_dy,
-                    double vs, double qs, int friction, void* stream) {
-  return fused<double, false>(z, zmax, qx, qy, zb, n, nullptr, z_out,
-                              zmax_out, qx_out, qy_out, nullptr, speeds, dt,
-                              rows, cols, inv_dx, inv_dy, vs, qs, friction,
-                              stream);
+                    int rows, int cols, int chunk, int grid_x, int grid_y,
+                    double inv_dx, double inv_dy, double vs, double qs,
+                    int friction, void* stream) {
+  return correct<double, false, PREDICTED>(
+      z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
+      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
+      inv_dy, vs, qs, friction, stream);
 }
 
 }  // extern "C"

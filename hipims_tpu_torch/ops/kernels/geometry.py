@@ -1,16 +1,18 @@
 """Launch geometry of the row-marching kernels: the Godunov step K1 and
 the partial-inertial step K4 (``csrc/stencil.cu``), and the MUSCL
-corrector K3 (split12) and K5a-C (recompute) (``csrc/muscl_split.cu``).
+corrector K3 (split12), K5a-C (recompute) and K5b (the whole step)
+(``csrc/muscl_split.cu``).
 
 A block is ``WARPS`` warps side by side.  Each warp loads 32 columns and
 owns ``lane_cols(halo)`` of them, with ``halo`` halo lanes on either side,
 so a block owns a strip of ``strip(halo)`` columns (``csrc/march.cuh``
 computes both the same way); it marches down ``chunk`` rows.  K1, K3 and
-K4 take one halo lane, K5a-C two (its first owned lane's west face needs
-the slope of the column west of it, which needs one column more).  The
-kernels compute where each lane works from the chunk and their block
-index (``csrc/march.cuh`` ``march_pos``); ``lane_columns`` repeats that
-arithmetic so that the CPU tests can check the cover of the grid.
+K4 take one halo lane, K5a-C and K5b two (their first owned lane's west
+face needs the slope of the column west of it, which needs one column
+more).  The kernels compute where each lane works from the chunk and
+their block index (``csrc/march.cuh`` ``march_pos``); ``lane_columns``
+repeats that arithmetic so that the CPU tests can check the cover of the
+grid.
 Nothing here needs a card.
 """
 

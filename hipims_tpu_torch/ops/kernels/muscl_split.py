@@ -11,10 +11,10 @@ launch count:
   (its launch geometry comes from ``geometry.march_geometry``);
 * ``muscl_correct_recompute``  K5a-C: the same row-marching corrector, which
   rebuilds each cell's slopes once from the state (two halo lanes);
-* ``muscl_fused``              K5b: the whole step in one kernel, which
-  rebuilds the slopes and the half-step base state of five cells per cell
-  (``stencil_step("muscl-hancock")``; no ``Simulation`` path takes it, as
-  in the JAX package).
+* ``muscl_fused``              K5b: the whole step in one kernel, the same
+  row-marching corrector with slopes and half-step base PREDICTED from the
+  state, once per cell (``stencil_step("muscl-hancock")``; no
+  ``Simulation`` path takes it, as in the JAX package).
 
 On CPU tensors a wrapper runs its plain PyTorch version
 (``muscl_predict_plain`` / ``muscl_correct_plain`` / ``muscl_step_plain``);
@@ -50,10 +50,11 @@ RING = 2           # MUSCL static ring width
 VARIANTS = ("split12", "recompute")
 # Where the corrector finds the slopes (csrc/muscl_split.cu SlopeSource):
 # K3 loads K2's 8 slope planes, K5a-C rebuilds them beside K5a-P's 4 base
-# planes; the predictor planes each takes, and its warps' halo lanes.
-LOADED, REBUILT = 0, 1
-CORRECTOR_PLANES = {LOADED: N_PRED, REBUILT: 4}
-CORRECTOR_HALO = {LOADED: 1, REBUILT: 2}
+# planes, K5b rebuilds them and predicts the base from them; the predictor
+# planes each takes, and its warps' halo lanes.
+LOADED, REBUILT, PREDICTED = 0, 1, 2
+CORRECTOR_PLANES = {LOADED: N_PRED, REBUILT: 4, PREDICTED: 0}
+CORRECTOR_HALO = {LOADED: 1, REBUILT: 2, PREDICTED: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,8 +62,8 @@ _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
 _CORRECT_F32_ARGS = [_P] * 15 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
 _CORRECT_F64_ARGS = [_P] * 13 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
-_FUSED_F32_ARGS = [_P] * 14 + [_I, _I] + [_D] * 4 + [_I, _P]
-_FUSED_F64_ARGS = [_P] * 12 + [_I, _I] + [_D] * 4 + [_I, _P]
+_FUSED_F32_ARGS = [_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _P]
+_FUSED_F64_ARGS = [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _P]
 
 
 @functools.cache
@@ -76,8 +77,7 @@ def _lib():
                        ("muscl_correct_f32", _CORRECT_F32_ARGS),
                        ("muscl_correct_f64", _CORRECT_F64_ARGS),
                        ("muscl_fused_f32", _FUSED_F32_ARGS),
-                       ("muscl_fused_f64", _FUSED_F64_ARGS),
-                       ("muscl_fused_partials", [_I, _I])):
+                       ("muscl_fused_f64", _FUSED_F64_ARGS)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = _I
@@ -205,13 +205,19 @@ def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
                                        *_spacing(params), slopes))
 
 
-def _fused_cuda(state, static, dt, params, comp):
-    """Launch K5b on its 32x8 grid: it rebuilds the predictor too."""
-    inputs = _check_step("muscl_fused", state, static, None, 0, dt, comp)
-    lib = _lib()
-    return launch_step(lib, "muscl_fused", "muscl_fused", inputs, state,
-                       comp, dt, lib.muscl_fused_partials(*state.z.shape),
-                       (*state.z.shape, *_spacing(params)))
+def _fused_cuda(state, static, dt, params, comp, chunk=None):
+    """Launch K5b, the row-marching corrector with slopes and base
+    PREDICTED from the state, on the geometry of its grid and halo,
+    ``chunk`` rows per block unless ``geometry.march_geometry`` picks
+    them."""
+    inputs = _check_step("muscl_fused", state, static, None,
+                         CORRECTOR_PLANES[PREDICTED], dt, comp)
+    geom = march_geometry(*state.z.shape, chunk=chunk,
+                          halo=CORRECTOR_HALO[PREDICTED])
+    return launch_step(_lib(), "muscl_fused", "muscl_fused", inputs, state,
+                       comp, dt, geom.partials, (*state.z.shape,
+                                                 *geom.args(),
+                                                 *_spacing(params)))
 
 
 def muscl_predict(state: FlowState, static, dt, params: SchemeParams):

@@ -15,8 +15,9 @@ kernel wrapper on chip_smoke's random domain at 2944 x 3072 and at 1408 x
 other), each turn a process of its own; K4 in the same turns on variants
 of that domain (as drawn, with one Manning value, with one per land-use
 patch of 5x7 or 10x10 cells, with no disabled cells) and on the phase-4d
-inertial model's own state; then this tree's row-marching kernels (K1,
-K3, K4, K5a-C) over chunk heights.  With ``--profile`` it adds the
+inertial model's own state; the two MUSCL pairs (split12: K2 + K3,
+recompute: K5a-P + K5a-C) as one step each, in the same turns; then this
+tree's row-marching kernels (K1, K3, K4, K5a-C, K5b) over chunk heights.  With ``--profile`` it adds the
 in-situ time per steady step of K1, K3, K4 and K5a-C
 (``hipims_tpu_torch/tools/profile_batch.py``) on the pluvial models of
 chip_smoke phases 4 (Godunov), 4b (MUSCL, split12), 4d (inertial) and 4c
@@ -64,6 +65,11 @@ CALLS = {
         ms.muscl_predict_base(s, g, dt, p),
     "muscl_correct_recompute": lambda st, ms, s, g, c, dt, p, pr:
         ms.muscl_correct_recompute(s, g, pr[1], dt, p, comp=c),
+    # The two MUSCL pairs as a step takes them, to rank K5b against.
+    "split12 (K2 + K3)": lambda st, ms, s, g, c, dt, p, pr:
+        ms.muscl_step_split(s, g, dt, p, "split12", c),
+    "recompute (K5a-P + K5a-C)": lambda st, ms, s, g, c, dt, p, pr:
+        ms.muscl_step_split(s, g, dt, p, "recompute", c),
 }
 # This tree's row-marching kernels launched at a given chunk height.
 BY_CHUNK = {
@@ -75,6 +81,8 @@ BY_CHUNK = {
         s, g, pr[0], dt, p, c, chunk=k),
     "muscl_correct_recompute": lambda st, ms, s, g, c, dt, p, pr, k:
         ms._correct_cuda(s, g, pr[1], dt, p, c, slopes=ms.REBUILT, chunk=k),
+    "muscl_fused": lambda st, ms, s, g, c, dt, p, pr, k: ms._fused_cuda(
+        s, g, dt, p, c, chunk=k),
 }
 # K4's inputs, to find what sets its time on the random domain: the domain
 # as drawn (n per cell), with one Manning value (the pluvial model's), with
@@ -271,12 +279,14 @@ def ptxas_report(tree):
                               r"spill loads", ln)
                 if m:
                     spill = f"spill {m.group(1)}/{m.group(2)} B"
-                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem",
-                              ln)
+                # A kernel without shared memory prints no smem count.
+                m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes "
+                              r"smem)?", ln)
                 if m and name:
                     n_all, n_mufu = sass.get(name, ("?", "?"))
                     lines.append(f"  {src}: {_demangle(name)}: {m.group(1)} "
-                                 f"registers, {m.group(2)} B smem, {spill}, "
+                                 f"registers, {m.group(2) or 0} B smem, "
+                                 f"{spill}, "
                                  f"{n_all} SASS instructions ({n_mufu} "
                                  "MUFU)")
                     name = None
@@ -343,7 +353,7 @@ def profile_in_situ(tree, root):
     return lines
 
 
-def _ab_rows(runs, pick, names, label_width=24):
+def _ab_rows(runs, pick, names, label_width=26):
     """One line per (name, mode): both trees' turns and this/other."""
     rows = []
     for name in names:

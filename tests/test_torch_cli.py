@@ -86,6 +86,33 @@ def test_glasgow_class_volume_matches_jax(tmp_path):
     assert vols["torch"] == pytest.approx(vols["jax"], rel=1e-6)
 
 
+def test_reference_command_line_runs(tmp_path, capsys):
+    """The reference's command line, ``-c model.xml -m -x dir -s``, as the
+    JAX CLI takes it: -m and -x are accepted and ignored with a note each
+    (in the log file: -s keeps the console quiet), and the dam break's
+    rasters equal those of the same run without them, and those of the
+    JAX CLI on the same line at the dam-break bar."""
+    for run in ("plain", "reference", "jax"):
+        build_dam_break(tmp_path / run)
+    xml = str(tmp_path / "plain" / "dam-break.xml")
+    assert torch_main(["-c", xml, "-s", "--platform", "cpu"]) == 0
+    xml = str(tmp_path / "reference" / "dam-break.xml")
+    log = tmp_path / "reference.log"
+    assert torch_main(["-c", xml, "-m", "-x", str(tmp_path), "-s",
+                       "-l", str(log), "--platform", "cpu"]) == 0
+    assert capsys.readouterr().out == ""
+    notes = log.read_text()
+    assert "--mpi-mode is a no-op" in notes
+    assert "--code-dir ignored" in notes
+    assert jax_main(["-c", str(tmp_path / "jax" / "dam-break.xml"), "-m",
+                     "-x", str(tmp_path), "-s", "--platform", "cpu"]) == 0
+    for t in (10, 20, 30, 40):
+        got, want, jax = (_depth(tmp_path / run / "output" / f"depth_{t}.tif")
+                          for run in ("reference", "plain", "jax"))
+        assert np.array_equal(got, want)
+        np.testing.assert_allclose(got, jax, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("argv", [["--mesh", "2"], ["--distributed", "env"],
                                   ["--checkpoint", "c.npz"],
                                   ["--resume", "c.npz"],

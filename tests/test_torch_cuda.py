@@ -12,7 +12,8 @@ with numpy from a seed.  Tolerances: float64 to 1e-12 (bit-equal is
 expected under --fmad=false), float32 to rtol 1e-5 / atol 1e-6, and the
 true surface z + comp to 1e-6.  At the ragged shapes every kernel is held
 to its plain version bit for bit (torch.equal), K4 under three layouts of
-the Manning n, and the recompute chain to split12.
+the Manning n, K5b also at chunk heights of 1 to 64 rows, and the
+recompute chain and K5b to split12.
 """
 
 import numpy as np
@@ -118,17 +119,37 @@ def test_k4_k5b_match_plain(scheme, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128), *RAGGED])
 @pytest.mark.parametrize("mode", MODES)
-def test_k5b_equals_split12_on_card(mode):
-    """K5b runs the same per-cell code as K2 -> K3: rel 1e-13 is the bar,
-    bit-equal the expectation."""
-    state, static, comp, dt = _inputs(mode)
+def test_k5b_equals_split12_on_card(mode, shape):
+    """K5b is the corrector of K3 and K5a-C with its slopes and base
+    predicted by K2's own half step: it equals split12 (K2 -> K3) and
+    recompute (K5a-P -> K5a-C) bit for bit, fields, max speed and comp."""
+    state, static, comp, dt = _inputs(mode, *shape)
     a = st.stencil_step("muscl-hancock", state, static, dt, PARAMS,
                         comp=comp)
-    b = ms.muscl_step_split(state, static, dt, PARAMS, "split12", comp)
-    for x, y in zip([*a[0], a[1], *a[2:]], [*b[0], b[1], *b[2:]]):
-        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
-                                   rtol=1e-13, atol=0)
+    for variant in ("split12", "recompute"):
+        b = ms.muscl_step_split(state, static, dt, PARAMS, variant, comp)
+        for x, y in zip([*a[0], a[1], *a[2:]], [*b[0], b[1], *b[2:]]):
+            assert torch.equal(x, y), variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 8, 15, 64])
+@pytest.mark.parametrize("mode", MODES)
+def test_k5b_bit_equal_by_chunk_height(mode, chunk):
+    """K5b at a given number of rows per block equals its plain version
+    bit for bit at 3x3 (all ring) and at 4 chunks + 1 rows by 113
+    columns: one row past a chunk and one column past a 112-column strip
+    (two halo lanes)."""
+    for shape in ((3, 3), (4 * chunk + 1, 113)):
+        state, static, comp, dt = _inputs(mode, *shape)
+        before = st.muscl_fused.launches
+        got = ms._fused_cuda(state, static, dt, PARAMS, comp, chunk=chunk)
+        want = ms.muscl_step_plain(state, static, dt, PARAMS, comp=comp)
+        assert st.muscl_fused.launches == before
+        for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+            assert torch.equal(g, w), shape
 
 
 @pytest.mark.cuda
@@ -254,7 +275,7 @@ def _assert_bit_equal_nan(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", ["K1", "K3", "K5a-C"])
+@pytest.mark.parametrize("name", ["K1", "K3", "K5a-C", "K5b"])
 def test_nan_reaches_the_max_speed(name, mode):
     """A NaN Manning n in one wet interior cell turns that cell's
     discharge NaN through friction while its depth stays finite, so the

@@ -1,5 +1,5 @@
 """The launch geometry of the row-marching kernels K1, K3, K4 (one halo
-lane per warp side) and K5a-C (two) (hipims_tpu_torch/ops/kernels/
+lane per warp side), K5a-C and K5b (two) (hipims_tpu_torch/ops/kernels/
 geometry.py), on the CPU: at either halo width every cell is written by
 exactly one lane of one block, the partials buffer has one slot per block,
 the main paths' grid fills an H100 several times over, and the constants
@@ -10,10 +10,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as hs
 
+from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import geometry as G
+from hipims_tpu_torch.state import DomainStatic, FlowState
 
 H100_SMS = 132
 # (rows, cols): the card tests' shapes, chip_smoke's cases, and shapes one
@@ -145,14 +148,43 @@ def test_constants_match_march_header():
     assert [G.strip(h) for h in G.HALOS] == [120, 112]
 
 
-def test_corrector_halos_match_muscl_source():
-    """K3 takes one halo lane and K5a-C two, in the wrapper and in
-    csrc/muscl_split.cu corrector_halo."""
+def test_corrector_halos_match_muscl_source(monkeypatch):
+    """K3 takes one halo lane, K5a-C and K5b two, in the wrapper and in
+    csrc/muscl_split.cu corrector_halo; K5b's launcher sizes its launch
+    and partials for the two-lane halo."""
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
 
     src = Path(G.__file__).parents[2] / "csrc" / "muscl_split.cu"
     flat = " ".join(src.read_text().split())
-    assert "return slopes == REBUILT ? 2 : 1;" in flat
-    assert "enum SlopeSource { LOADED = 0, REBUILT = 1 };" in flat
-    assert (ms.LOADED, ms.REBUILT) == (0, 1)
-    assert ms.CORRECTOR_HALO == {ms.LOADED: 1, ms.REBUILT: 2}
+    assert "return slopes == LOADED ? 1 : 2;" in flat
+    assert ("enum SlopeSource { LOADED = 0, REBUILT = 1, PREDICTED = 2 };"
+            in flat)
+    assert (ms.LOADED, ms.REBUILT, ms.PREDICTED) == (0, 1, 2)
+    assert ms.CORRECTOR_HALO == {ms.LOADED: 1, ms.REBUILT: 2,
+                                 ms.PREDICTED: 2}
+    assert ms.CORRECTOR_PLANES[ms.PREDICTED] == 0
+
+    # _fused_cuda up to its launch, on CPU tensors: the geometry and the
+    # partials it hands the C entry point.
+    seen = {}
+
+    def launch(lib, name, who, inputs, state, comp, dt, n_partials, args):
+        seen.update(name=name, inputs=len(inputs), partials=n_partials,
+                    args=args)
+
+    monkeypatch.setattr(ms, "launch_step", launch)
+    monkeypatch.setattr(ms, "_lib", lambda: None)
+    rows, cols = 65, 113
+    planes = [torch.zeros(rows, cols, dtype=torch.float64)
+              for _ in range(6)]
+    params = SchemeParams(2.0, 2.0)
+    dt = torch.tensor(0.05, dtype=torch.float64)
+    for chunk in (None, 15):
+        ms._fused_cuda(FlowState(*planes[:4]), DomainStatic(*planes[4:]),
+                       dt, params, None, chunk=chunk)
+        geom = G.march_geometry(rows, cols, chunk=chunk, halo=2)
+        assert seen == dict(name="muscl_fused", inputs=6,
+                            partials=geom.partials,
+                            args=(rows, cols, *geom.args(), 0.5, 0.5,
+                                  params.very_small, params.quite_small, 1))
+    assert geom.grid == (2, 5)

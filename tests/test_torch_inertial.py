@@ -9,7 +9,8 @@ against the JAX package's, on the CPU, from the same numpy inputs:
   float32 over 4 steps (fields rtol 1e-5 / atol 1e-6, true surface
   z + comp to 1e-6);
 * a 64-step batch with rain and loss, port ``Simulation`` against JAX's;
-* the CLI on the inertial dam break, port rasters against JAX's.
+* the CLI on the inertial dam break, port rasters against JAX's;
+* a NaN Manning n: both ``run_to`` raise "diverged" at the same time.
 """
 
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from hipims_tpu.cli import main as jax_main
+from hipims_tpu.domain import Domain as JDomain
 from hipims_tpu.ops.boundaries import UniformBoundary as JUniform
 from hipims_tpu.ops.godunov import SchemeParams as JParams
 from hipims_tpu.ops.inertial import inertial_step as j_inertial_step
@@ -28,6 +30,7 @@ from hipims_tpu.state import DomainStatic as JStatic
 from hipims_tpu.state import FlowState as JState
 from hipims_tpu.tools.model_builder import build_dam_break
 from hipims_tpu_torch.cli import main as torch_main
+from hipims_tpu_torch.domain import Domain
 from hipims_tpu_torch.io import raster as t_raster
 from hipims_tpu_torch.models import get_scheme
 from hipims_tpu_torch.ops.boundaries import UniformBoundary
@@ -37,7 +40,7 @@ from hipims_tpu_torch.ops.kernels.stencil import KERNELS, stencil_step
 from hipims_tpu_torch.runtime import Simulation, SimulationConfig
 from hipims_tpu_torch.state import from_numpy, to_numpy
 from tests.test_godunov_oracle import random_domain
-from tests.test_torch_simulation import _domains
+from tests.test_torch_simulation import _domains, _terrain
 
 torch.set_num_threads(1)
 
@@ -193,3 +196,34 @@ def test_cli_dam_break_matches_jax(tmp_path):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     first = got[4]
     assert first[:200].min() < 2.0 - 0.1 and first[200:].max() > 0.2 + 0.1
+
+
+def test_nan_manning_diverges_as_in_jax():
+    """A NaN Manning n in one wet cell of an f64 inertial grid turns that
+    cell's surface NaN (its faces carry its n), while its NaN depth stays
+    out of the sqrt(g h) CFL speed; the batch's state-sum probe then turns
+    the batch statistic NaN, and ``run_to`` raises "diverged" at the end of
+    that batch, in the port as in the JAX package, at the same simulated
+    time for the same batch size."""
+    import re
+
+    zb, depth = _terrain(rows=24, cols=32)
+    manning = np.full(zb.shape, 0.035)
+    wet = np.argwhere((depth[2:-2, 2:-2] > 0) & (zb[2:-2, 2:-2] > -9000))
+    r, c = wet[len(wet) // 2] + 2
+    manning[r, c] = np.nan
+    cfg = dict(scheme="inertial", duration=600.0, output_frequency=600.0,
+               dtype="float64", batch_size=8, batch_auto=False)
+    times = {}
+    for name, dom_cls, sim_cls, cfg_cls, kw in (
+            ("jax", JDomain, JSimulation, JConfig, {}),
+            ("torch", Domain, Simulation, SimulationConfig,
+             dict(device="cpu"))):
+        dom = dom_cls(zb=zb.copy(), manning=manning.copy(), dx=2.0, dy=2.0)
+        dom.set_initial_depth(depth)
+        sim = sim_cls(dom, cfg_cls(**cfg), **kw)
+        with pytest.raises(RuntimeError, match="diverged") as err:
+            sim.run_to(60.0)
+        times[name] = float(re.search(r"\(t=([^,]+),", str(err.value))[1])
+    assert 0.0 < times["torch"] < 60.0
+    assert times["torch"] == pytest.approx(times["jax"], rel=1e-12)
