@@ -35,8 +35,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rasters every 150 s: every step launches K2 and K3 (the default
    variant, split12);
 4c. the MUSCL model with ``muscl_variant="recompute"`` through the
-   embedding API (load_config -> Simulation.run), 150 s: every step
-   launches K5a-P and K5a-C; final depth finite, mass balance;
+   embedding API (``hipims_tpu_torch.api.simulation_load(xml)
+   .launch(blocking=False)``, polled to its end), 150 s: every step
+   launches K5a-P and K5a-C; no error on the run's thread; the depth read
+   by ``field("depth")`` in an ``on_output`` callback is finite and holds
+   the mass balance;
 4d. this slice's main path: the phase-4 model with <scheme
    name="inertial">, 600 s with rasters every 300 s, through the CLI:
    every step launches K4 and no other scheme kernel; rasters, mass
@@ -47,10 +50,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rasters every 300 s, through the CLI: every step launches K1; finite
    rasters; the volume positive and not falling from the first output
    event to the second; its ratio to 400 m3/s x t is printed;
+4f. a real model directory at 2944x3072 (write_radar_model): the
+   phase-4 terrain as two overlapping ``<domain>`` row bands whose DEMs
+   are HFA (.img) files, radar rain as ``<timeseries type="gridded">``
+   (1 km frames every 300 s, mean 38.4 mm/h, none below 6) with the 6
+   mm/h loss, a depth raster and a gauge CSV of 8 points; run A, 300 s
+   through the CLI with ``--checkpoint`` and outputs every 150 s; run B,
+   ``--resume`` from the 150 s checkpoint to 300 s.  Checks: every step
+   of both launches K1 and no other kernel; B writes no 150 s raster;
+   B's 300 s raster and gauge row are bit-equal to A's; A's mass balance
+   within 1% of the frames' rain minus the loss; the band DEMs read back
+   and stitched equal the loader's bed.  Prints walls, steps, the seconds
+   of each output event (host copy, raster, gauge, checkpoint) and the
+   checkpoint's size;
 5. the first slice whole: the phase-4 model at 128x128 and 120 s, in
    float64 ("double-strict"), on the card and on the CPU (plain
    versions); the final fields must agree within the f32c bounds; 5b: the
-   same for MUSCL; 5c: for the inertial model; 5d: for the breach.
+   same for MUSCL; 5c: for the inertial model; 5d: for the breach; 5e:
+   for phase 4f's model (50 m rain cells, frames every 60 s), whose gauge
+   rows must agree too.
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
@@ -65,9 +83,11 @@ Terrain and inputs are made from fixed seeds; nothing is downloaded.
 from __future__ import annotations
 
 import contextlib
+import datetime as _dt
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,6 +155,7 @@ BREACH_BOUNDARY = """<timeseries type="cell" name="Breach" value="discharge"
                       source="hydrograph.csv" mapFile="breach.csv"
                       depthValue="ignore" dischargeValue="total" />"""
 RAIN_MM_H, LOSS_MM_H = 38.4, 6.0
+_REAL_START = _dt.datetime(2020, 6, 1, 12, 0, 0)
 # The one Manning value of phase 3c's second K4 case (the pluvial model's).
 ONE_MANNING = 0.04
 BREACH_M3_S = 400.0
@@ -166,10 +187,7 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
     ``scheme`` name; returns the XML path.  Uses the port's own raster
     writer."""
     root = Path(root)
-    yy, xx = np.mgrid[0:rows, 0:cols]
-    _write_dem(root, 30.0 - xx * dx * 0.01
-               + 1.5 * np.sin(yy / 12.0) * np.sin(xx / 17.0)
-               + 0.5 * np.sin(yy / 3.1) * np.cos(xx / 4.3), dx)
+    _write_dem(root, glasgow_bed(rows, cols, dx), dx)
     (root / "boundaries" / "rain.csv").write_text(
         f"Time,Rate\n0,{RAIN_MM_H}\n3600,0\n7200,0\n")
     (root / "boundaries" / "drain.csv").write_text(
@@ -180,6 +198,136 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
         duration=duration, outfreq=outfreq, precision=precision,
         manning=0.04, scheme=scheme, boundaries=RAIN_BOUNDARIES))
     return xml
+
+
+def glasgow_bed(rows, cols, dx):
+    """The Glasgow-class terrain (domain orientation, row 0 south)."""
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    return (30.0 - xx * dx * 0.01
+            + 1.5 * np.sin(yy / 12.0) * np.sin(xx / 17.0)
+            + 0.5 * np.sin(yy / 3.1) * np.cos(xx / 4.3))
+
+
+RADAR_XML = """<?xml version="1.0"?>
+<configuration>
+  <metadata><name>radar-glasgow-class</name>
+    <description>Synthetic Glasgow-class model under radar rain, in two
+    row bands</description>
+  </metadata>
+  <simulation>
+    <parameter name="duration" value="{duration}" />
+    <parameter name="outputFrequency" value="{outfreq}" />
+    <parameter name="floatingPointPrecision" value="{precision}" />
+    <parameter name="realStart" value="2020-06-01 12:00:00"
+               format="%Y-%m-%d %H:%M:%S" />
+    <domainSet syncMethod="forecast">
+{domains}
+    </domainSet>
+  </simulation>
+</configuration>
+"""
+RADAR_DOMAIN = """      <domain type="cartesian" deviceNumber="{part}">
+        <data sourceDir="topography/" targetDir="output/">
+          <dataSource type="raster" value="structure,dem"
+                      source="dem_part{part}.img" />
+          <dataSource type="constant" value="manningCoefficient"
+                      source="0.04" />
+          <dataTarget type="raster" value="depth" format="GTiff"
+                      target="depth_%t.tif" />
+          <dataTarget type="timeseries" value="depth"
+                      source="boundaries/gauges.csv"
+                      target="gauge_depth.csv" />
+        </data>
+        <scheme name="godunov">
+          <parameter name="courantNumber" value="0.5" />
+          <parameter name="frictionEffects" value="yes" />
+        </scheme>
+        <boundaryConditions sourceDir="boundaries/">
+          <domainEdge edge="north" treatment="closed" />
+          <domainEdge edge="south" treatment="closed" />
+          <domainEdge edge="east" treatment="closed" />
+          <domainEdge edge="west" treatment="closed" />
+          <timeseries type="gridded" name="Radar" value="rain-intensity"
+                      mask="radar_%Y%m%d_%H%M%S.asc" interval="{interval}" />
+          <timeseries type="atmospheric" name="Drain"
+                      value="loss-rate" source="drain.csv" />
+        </boundaryConditions>
+      </domain>"""
+
+
+def write_radar_model(root, rows, cols, duration, outfreq,
+                      precision="double", dx=2.0, interval=300.0,
+                      rain_cell=1000.0, overlap=4, seed=5):
+    """Write phase 4f's model directory: the Glasgow-class terrain as two
+    ``<domain>`` row bands overlapping by ``overlap`` rows on each side of
+    the seam (model_builder --decompose 2), their DEMs as HFA (.img)
+    files; radar frames every ``interval`` s (realStart + t names them) on
+    a grid of ``rain_cell`` m cells, rates uniform in [6, 70.8] mm/h
+    (mean 38.4) from ``seed``; the 6 mm/h loss; a depth raster and a
+    depth gauge CSV of 8 points.  Returns the XML path; the same XML with
+    targetDir "output_b/" is ``model_b.xml`` beside it."""
+    from hipims_tpu_torch.io.raster import Raster, write_raster
+
+    root = Path(root)
+    (root / "topography").mkdir(parents=True, exist_ok=True)
+    (root / "boundaries").mkdir(parents=True, exist_ok=True)
+    bed = glasgow_bed(rows, cols, dx).astype(np.float32)
+    seam = rows // 2
+    for part, (lo, hi) in enumerate(((0, seam + overlap),
+                                     (seam - overlap, rows))):
+        write_raster(root / "topography" / f"dem_part{part}.img",
+                     Raster.from_domain_array(bed[lo:hi], xll=0.0,
+                                              yll=lo * dx, cell_size=dx))
+    grows = -(-int(rows * dx) // int(rain_cell))
+    gcols = -(-int(cols * dx) // int(rain_cell))
+    frames = np.random.default_rng(seed).uniform(
+        LOSS_MM_H, 2 * RAIN_MM_H - LOSS_MM_H,
+        (int(duration // interval) + 1, grows, gcols))
+    start = _REAL_START
+    for k, frame in enumerate(frames):
+        name = (start + _dt.timedelta(seconds=k * interval)).strftime(
+            "radar_%Y%m%d_%H%M%S.asc")
+        write_raster(root / "boundaries" / name, Raster.from_domain_array(
+            frame, xll=0.0, yll=0.0, cell_size=rain_cell))
+    (root / "boundaries" / "drain.csv").write_text(
+        f"Time,Rate\n0,{LOSS_MM_H}\n{duration},{LOSS_MM_H}\n")
+    (root / "boundaries" / "gauges.csv").write_text("x,y,name\n" + "".join(
+        f"{(0.1 + 0.8 * fx) * cols * dx:.3f},"
+        f"{(0.1 + 0.8 * fy) * rows * dx:.3f},G{k + 1}\n"
+        for k, (fx, fy) in enumerate(
+            [(0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (1.0, 1.0), (0.5, 0.5),
+             (0.25, 0.75), (0.75, 0.25), (0.5, 0.95)])))
+    xml = root / "model.xml"
+    xml.write_text(RADAR_XML.format(
+        duration=duration, outfreq=outfreq, precision=precision,
+        domains="\n".join(RADAR_DOMAIN.format(part=part, interval=interval)
+                          for part in (0, 1))))
+    (root / "model_b.xml").write_text(xml.read_text().replace(
+        'targetDir="output/"', 'targetDir="output_b/"'))
+    return xml
+
+
+def radar_volume(root, rows, cols, duration, interval, ring, dx=2.0):
+    """Rain minus loss over ``duration`` on the forced cells (the grid
+    minus the scheme's static ring), from the radar frames in ``root``:
+    each frame over its ``interval``, each cell under its rain cell."""
+    from hipims_tpu_torch.io.raster import read_raster
+
+    paths = sorted((Path(root) / "boundaries").glob("radar_*.asc"))
+    total = 0.0
+    for k, path in enumerate(paths):
+        seconds = min((k + 1) * interval, duration) - k * interval
+        if seconds <= 0.0:
+            continue
+        r = read_raster(path)
+        frame = r.to_domain_array()
+        ri = np.minimum(np.arange(ring, rows - ring) * dx // r.cell_size,
+                        frame.shape[0] - 1).astype(int)
+        ci = np.minimum(np.arange(ring, cols - ring) * dx // r.cell_size,
+                        frame.shape[1] - 1).astype(int)
+        total += frame[np.ix_(ri, ci)].sum() / 3.6e6 * seconds
+    forced = (rows - 2 * ring) * (cols - 2 * ring)
+    return (total - LOSS_MM_H / 3.6e6 * duration * forced) * dx * dx
 
 
 def write_thamesmead_model(root, rows, cols, duration, outfreq,
@@ -490,11 +638,11 @@ def _forced_volume(rows, cols, ring, duration):
     return (RAIN_MM_H - LOSS_MM_H) / 3.6e6 * duration * forced
 
 
-def _run_cli(xml, device):
-    """Run ``xml`` through the CLI with --mass-balance on ``device`` ("gpu"
-    or "cpu").  Returns what it measured: wall and run seconds, steps
-    (+ idle), the volume at each output event, the launches of every
-    kernel wrapper during the run and the log."""
+def _run_cli(xml, device, *extra):
+    """Run ``xml`` through the CLI with --mass-balance (and ``extra``
+    arguments) on ``device`` ("gpu" or "cpu").  Returns what it measured:
+    wall and run seconds, steps (+ idle), the volume at each output event,
+    the launches of every kernel wrapper during the run and the log."""
     from hipims_tpu_torch.cli import main as cli_main
 
     buf = io.StringIO()
@@ -502,7 +650,7 @@ def _run_cli(xml, device):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli_main(["-c", str(xml), "-n", "--mass-balance",
-                       "--platform", device])
+                       "--platform", device, *extra])
     wall = time.perf_counter() - t0
     launches = _read_launches()
     out = buf.getvalue()
@@ -590,34 +738,199 @@ def run_breach_path(root, device, rows, cols, duration, outfreq):
 
 def run_api_path(root, device, rows, cols, duration, variant,
                  mass_tol=MASS_BALANCE_REL):
-    """Phase 4c: the MUSCL model through the embedding API
-    (``load_config`` -> ``Simulation.run``) on ``device`` with
-    ``SimulationConfig.muscl_variant = variant``; checks the final depth
-    and the mass balance.  Returns what it measured."""
-    from hipims_tpu_torch.io.xml_config import load_config
+    """Phase 4c: the MUSCL model through the embedding API on ``device``
+    with ``SimulationConfig.muscl_variant = variant``: launched on a
+    background thread and polled to its end; ``field("depth")`` read in
+    an ``on_output`` callback (no rasters are written) must be finite and
+    hold the mass balance.  Returns what it measured."""
+    from hipims_tpu_torch.api import simulation_load
     from hipims_tpu_torch.models import get_scheme
+    from hipims_tpu_torch.runtime.output import NODATA
 
     xml = write_glasgow_model(root, rows, cols, duration, duration,
                               scheme="musclhancock")
-    model = load_config(xml)
-    model.output_targets = []              # the volume is read in memory
-    model.config.muscl_variant = variant
-    sim = model.simulation(device=device)
+    handle = simulation_load(xml, device=device)
+    sim = handle.simulation
+    sim.output_writer = None               # the depth is read in memory
+    sim.config.muscl_variant = variant
+    depths = []
+    handle.on_output(lambda h, t: depths.append((t, h.field("depth"))))
     _reset_launches()
     t0 = time.perf_counter()
-    sim.run()                  # ends on a host read of the clock
+    handle.launch(blocking=False)
+    while handle.running:
+        time.sleep(0.02)
     wall = time.perf_counter() - t0
     launches = _read_launches()
-    depth = sim.depth()
-    if not np.isfinite(depth).all():
-        raise RuntimeError("API run: non-finite depth")
-    ring = get_scheme(model.config.scheme).radius
+    if handle.error is not None:
+        raise RuntimeError(f"API run failed: {handle.error!r}") \
+            from handle.error
+    (t, depth), = depths
+    if t != duration or not np.isfinite(depth).all():
+        raise RuntimeError(f"API run: one finite depth at {duration} s "
+                           f"expected, got t={t}")
+    volume = float(np.where(depth != NODATA, depth, 0.0).sum()
+                   * sim.domain.dx * sim.domain.dy)
+    ring = get_scheme(sim.config.scheme).radius
     expected = _forced_volume(rows, cols, ring, duration)
-    rel = (sim.volume() - expected) / expected
+    rel = (volume - expected) / expected
     if abs(rel) > mass_tol:
         raise RuntimeError(f"API run: mass balance off by {rel:+.4%}")
     return dict(wall_s=wall, steps=sim.total_steps, idle=sim.total_skipped,
                 launches=launches, rel=rel)
+
+
+@contextlib.contextmanager
+def output_events():
+    """Time every output event's parts while the block runs (host copy of
+    the state, rasters, gauges, checkpoint: one dict per event in the
+    list it yields), and keep a copy of each checkpoint written as
+    <stem>_<t>.npz beside it."""
+    from hipims_tpu_torch.runtime import checkpoint, output, simulation
+    from hipims_tpu_torch.utils import time_label
+
+    events = []
+
+    def timed(fn, part):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if part == "copy":
+                events.append({})
+            events[-1][part] = (events[-1].get(part, 0.0)
+                                + time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def save(path, sim, snapshot=None):
+        save_timed(path, sim, snapshot=snapshot)
+        path = Path(path)
+        shutil.copy(path, path.with_name(
+            f"{path.stem}_{time_label(sim.t)}{path.suffix}"))
+
+    saved = [(simulation._OutputSnapshot, "__init__"),
+             (output.RasterOutputWriter, "__call__"),
+             (output.GaugeOutputWriter, "__call__"),
+             (checkpoint, "save_checkpoint")]
+    originals = [getattr(obj, name) for obj, name in saved]
+    save_timed = timed(checkpoint.save_checkpoint, "checkpoint")
+    for (obj, name), fn, part in zip(saved[:3], originals,
+                                     ("copy", "raster", "gauge")):
+        setattr(obj, name, timed(fn, part))
+    checkpoint.save_checkpoint = save
+    try:
+        yield events
+    finally:
+        for (obj, name), fn in zip(saved, originals):
+            setattr(obj, name, fn)
+
+
+def run_radar_path(root, device, rows, cols, duration, outfreq,
+                   interval=300.0, rain_cell=1000.0,
+                   mass_tol=MASS_BALANCE_REL):
+    """Phase 4f: write the radar model, run A through the CLI on
+    ``device`` with --checkpoint (an output event every ``outfreq`` s),
+    run B with --resume from A's first checkpoint, and check B against A
+    bit for bit (raster and gauge row at ``duration``), A's mass balance
+    against the frames' rain minus the loss, and the band DEMs against
+    the loader's bed.  Returns what it measured."""
+    from hipims_tpu_torch.io.raster import read_raster
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.models import get_scheme
+    from hipims_tpu_torch.utils import time_label
+
+    root = Path(root)
+    xml = write_radar_model(root, rows, cols, duration, outfreq,
+                            interval=interval, rain_cell=rain_cell)
+    ck = root / "run.npz"
+    with output_events() as events_a:
+        res_a = _run_cli(xml, device, "--checkpoint", str(ck))
+    first = root / f"run_{time_label(outfreq)}.npz"
+    with output_events() as events_b:
+        res_b = _run_cli(root / "model_b.xml", device, "--resume",
+                         str(first))
+    # The step counters resume with the checkpoint: run B's own steps are
+    # those past it.
+    with np.load(first) as data:
+        res_b["steps"] -= int(data["batch_successful"])
+        res_b["idle"] -= int(data["batch_skipped"])
+
+    end, half = time_label(duration), time_label(outfreq)
+    if (root / "output_b" / f"depth_{half}.tif").exists():
+        raise RuntimeError(f"resumed run wrote the {half} s raster again")
+    a, b = (read_raster(root / d / f"depth_{end}.tif").data
+            for d in ("output", "output_b"))
+    if not np.array_equal(a, b):
+        raise RuntimeError(f"resumed {end} s raster differs from run A's: "
+                           f"max|diff| {np.abs(a - b).max():.3e}")
+    rows_a, rows_b = ((root / d / "gauge_depth.csv").read_text().splitlines()
+                      for d in ("output", "output_b"))
+    n_out = int(round(duration / outfreq))
+    if (len(rows_a) != n_out + 1 or rows_b[1:] != rows_a[-1:]
+            or rows_b[0] != rows_a[0] or len(rows_a[0].split(",")) != 9):
+        raise RuntimeError(f"gauge rows: run A {rows_a}, run B {rows_b}")
+
+    ring = get_scheme("godunov").radius
+    expected = radar_volume(root, rows, cols, duration, interval, ring)
+    rel = (res_a["volumes"][-1] - expected) / expected
+    if len(res_a["volumes"]) != n_out or abs(rel) > mass_tol:
+        raise RuntimeError(f"radar mass balance off by {rel:+.4%}: "
+                           f"volumes {res_a['volumes']}, rain - loss "
+                           f"{expected:.3f}")
+
+    bands = [read_raster(root / "topography" / f"dem_part{k}.img")
+             for k in (0, 1)]
+    stitched = np.full((rows, cols), np.nan)
+    for band in bands:
+        lo = int(round(band.yll / band.cell_size))
+        stitched[lo:lo + band.rows] = band.to_domain_array()
+    if not np.array_equal(stitched, load_config(xml).domain.zb):
+        raise RuntimeError("the stitched .img DEM differs from the "
+                           "loader's bed")
+    return dict(a=res_a, b=res_b, events_a=events_a, events_b=events_b,
+                rel=rel, expected=expected, gauges=rows_a,
+                checkpoint_mb=first.stat().st_size / 2 ** 20,
+                cells=rows * cols)
+
+
+def phase_radar_slice(torch, root):
+    """Phase 5e: phase 4f's model at 128x128, 120 s, float64, with 50 m
+    rain cells and frames every 60 s, on the card and on the CPU through
+    load_config -> Simulation.run; the final fields and every gauge row
+    must agree within the f32c bounds."""
+    from hipims_tpu_torch.io.xml_config import load_config
+
+    xml = write_radar_model(root, 128, 128, 120.0, 60.0,
+                            precision="double-strict", interval=60.0,
+                            rain_cell=50.0)
+    sims, gauges = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = load_config(xml)
+        model.target_dir = str(Path(root) / f"out_{dev}")
+        sim = model.simulation(device=dev)
+        sim.run()
+        sims[dev] = sim
+        gauges[dev] = np.loadtxt(Path(model.target_dir) / "gauge_depth.csv",
+                                 delimiter=",", skiprows=1)
+    g, c = sims["cuda"], sims["cpu"]
+    if g.total_steps != c.total_steps:
+        raise RuntimeError(f"step counts differ: card {g.total_steps}, cpu "
+                           f"{c.total_steps}")
+    rtol, atol = TOL["f32c"]
+    pairs = [(name, a.cpu(), b) for name, a, b in
+             zip(("z", "zmax", "qx", "qy"), g.state, c.state)]
+    pairs.append(("gauges", torch.as_tensor(gauges["cuda"]),
+                   torch.as_tensor(gauges["cpu"])))
+    worst = 0.0
+    for name, a, b in pairs:
+        excess, diff = _excess(a, b, rtol, atol)
+        worst = max(worst, diff)
+        if excess > 0.0:
+            raise RuntimeError(f"card and CPU runs differ in {name}: "
+                               f"max|diff|={diff:.3e}")
+    if gauges["cuda"].shape != (2, 9) or not (gauges["cuda"][:, 1:] > 0).any():
+        raise RuntimeError(f"gauge rows {gauges['cuda']}")
+    return g.total_steps, worst
 
 
 def phase_slice_gpu_vs_cpu(torch, xml):
@@ -828,8 +1141,9 @@ def main() -> int:
         total = res_c["steps"] + res_c["idle"]
         _expect_launches("phase 4c", res_c["launches"], {
             "muscl_predict_base": total, "muscl_correct_recompute": total})
-        print(f"phase 4c: MUSCL recompute variant through load_config -> "
-              f"Simulation.run, {rows}x{cols} f32c, 150 s simulated: "
+        print(f"phase 4c: MUSCL recompute variant through simulation_load"
+              f"(xml).launch(blocking=False), {rows}x{cols} f32c, 150 s "
+              f"simulated: "
               f"{res_c['steps']} steps (+{res_c['idle']} idle) in "
               f"{res_c['wall_s']:.2f} s; mass balance {res_c['rel']:+.4%}; "
               f"launches {total} each", flush=True)
@@ -858,6 +1172,33 @@ def main() -> int:
               f"{res_e['ratio']:.4f}); launches: godunov_fused "
               f"{res_e['launches']['godunov_fused']}", flush=True)
 
+        # Phase 4f: a real model directory (two HFA row bands, radar rain,
+        # gauges), run A with --checkpoint, run B resumed half way.
+        res_f = run_radar_path(Path(tmp) / "radar", "gpu", rows, cols,
+                               300.0, 150.0)
+        for run in ("a", "b"):
+            r = res_f[run]
+            _expect_launches(f"phase 4f run {run.upper()}", r["launches"], {
+                "godunov_fused": r["steps"] + r["idle"]})
+            events = "; ".join(", ".join(f"{k} {v:.2f}" for k, v in e.items())
+                               for e in res_f[f"events_{run}"])
+            print(f"phase 4f: radar model run {run.upper()} {rows}x{cols} "
+                  f"f32c, two HFA row bands, "
+                  + ("0-300 s with --checkpoint" if run == "a" else
+                     "--resume 150-300 s")
+                  + f": {r['steps']} steps (+{r['idle']} idle), wall "
+                  f"{r['wall_s']:.2f} s (set-up "
+                  f"{r['wall_s'] - r['run_s']:.1f} s, run with outputs "
+                  f"{r['run_s']:.1f} s) on {smi}; output events (s): "
+                  f"{events}; launches: godunov_fused "
+                  f"{r['launches']['godunov_fused']}", flush=True)
+        print(f"phase 4f: resumed raster and gauge row bit-equal to run A's; "
+              f"mass balance {res_f['rel']:+.4%} of the frames' rain - loss "
+              f"({res_f['expected']:.1f} m3); checkpoint "
+              f"{res_f['checkpoint_mb']:.1f} MiB; the stitched .img DEM "
+              f"equals the loader's bed; last gauge row "
+              f"{res_f['gauges'][-1]}", flush=True)
+
         # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
         # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
         slices = [(label, scheme, write_glasgow_model(
@@ -874,6 +1215,10 @@ def main() -> int:
             print(f"phase {label}: 128x128 120 s f64 {what} slice, card vs "
                   f"CPU: {steps5} steps, fields agree (max|diff| "
                   f"{err5:.3e})", flush=True)
+        steps5, err5 = phase_radar_slice(torch, Path(tmp) / "slice_radar")
+        print(f"phase 5e: 128x128 120 s f64 radar slice, card vs CPU: "
+              f"{steps5} steps, fields and gauge rows agree (max|diff| "
+              f"{err5:.3e})", flush=True)
 
     # The kernels line: launches on each kernel's main path, times and
     # bounds of one f32c step at 9.04 M cells on the random domain.

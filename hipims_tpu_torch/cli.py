@@ -2,6 +2,7 @@
 
 Usage:
     python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
+        [--checkpoint run.npz] [--resume run.npz]
 
 The reference's own command line (``-c model.xml -m -x dir -s``) runs
 too: ``-m`` and ``-x`` are accepted and ignored, each with a note.
@@ -46,9 +47,14 @@ def parse_args(argv=None):
     ap.add_argument("--io-mode", default=None,
                     choices=("auto", "gather", "stream"),
                     help="output gathering; only 'gather' is ported")
+    ap.add_argument("--checkpoint", default=None, metavar="FILE",
+                    help="(re)write a resumable checkpoint (.npz) at "
+                         "every output time")
+    ap.add_argument("--resume", default=None, metavar="FILE",
+                    help="resume from a checkpoint written with "
+                         "--checkpoint (skips already-written outputs)")
     # Accepted so that a JAX command line fails with a clear message.
-    for flag in ("--mesh", "--mesh-shape", "--distributed", "--checkpoint",
-                 "--resume"):
+    for flag in ("--mesh", "--mesh-shape", "--distributed"):
         ap.add_argument(flag, default=None, help="not yet ported")
     return ap.parse_args(argv)
 
@@ -68,7 +74,7 @@ def main(argv=None):
     if args.code_dir:
         log.line("note: --code-dir ignored (no OpenCL sources to locate)")
     unported = [f"--{k.replace('_', '-')}" for k in
-                ("mesh", "mesh_shape", "distributed", "checkpoint", "resume")
+                ("mesh", "mesh_shape", "distributed")
                 if getattr(args, k) is not None]
     if args.io_mode == "stream":
         unported.append("--io-mode stream")
@@ -117,6 +123,16 @@ def main(argv=None):
     except (ValueError, NotImplementedError) as e:
         log.error(f"Invalid model configuration: {e}")
         return 1
+    if args.resume:
+        from .runtime.checkpoint import load_checkpoint
+        try:
+            load_checkpoint(args.resume, sim)
+        except (ValueError, FileNotFoundError) as e:
+            log.error(f"Cannot resume: {e}")
+            return 1
+        log.line(f"  Resumed:     t={sim.t:.1f} s from {args.resume}")
+    if args.checkpoint:
+        sim.checkpoint_path = args.checkpoint
     if args.mass_balance:
         from .runtime.output import domain_volume
         inner_writer = sim.output_writer

@@ -9,9 +9,13 @@ Formats:
                                     past 4 GB, GeoTIFF georeferencing
                                     + GDAL nodata tag)
 
+  * Erdas Imagine HFA (.img)      — read (uncompressed and RLC blocks)
+                                    + write (io/hfa.py)
+
 A numpy-only copy of hipims_tpu/io/raster.py (the port never imports the
-JAX package).  Erdas Imagine HFA (.img) is not ported yet (ROADMAP.md,
-queue 1).  Replaces the reference's CRasterDataset GDAL wrapper
+JAX package); ASC bodies are formatted by the native host codec where it
+builds (native/), else by numpy.savetxt, to the same bytes.  Replaces the
+reference's CRasterDataset GDAL wrapper
 (src/Datasets/CRasterDataset.cpp:73-315 read, :101-290 write).
 """
 
@@ -91,9 +95,15 @@ def _write_asc(path: Path, raster: Raster):
               f"yllcorner {raster.yll}\n"
               f"cellsize {raster.cell_size}\n"
               f"NODATA_value {raster.nodata}\n")
+    from ..native import asc_format_native
+    data = np.asarray(raster.data, dtype=np.float64)
+    body = asc_format_native(data)
     with open(path, "wb") as f:
         f.write(header.encode())
-        np.savetxt(f, np.asarray(raster.data, dtype=np.float64), fmt="%.6f")
+        if body is not None:
+            f.write(body)
+        else:
+            np.savetxt(f, data, fmt="%.6f")
 
 
 # ------------------------------------------------------------- GeoTIFF ----
@@ -388,18 +398,22 @@ def _write_tiff(path: Path, raster: Raster):
 # ------------------------------------------------------------ dispatch ----
 
 def read_raster(path) -> Raster:
-    """Read a raster, dispatching on magic bytes first, then extension."""
+    """Read a raster, dispatching on magic bytes first, then extension
+    (an ``.img`` name may hold GeoTIFF bytes)."""
     path = Path(path)
     with open(path, "rb") as f:
         magic = f.read(16)
-    suffix = path.suffix.lower()
-    if magic.startswith(b"EHFA_HEADER_TAG") or suffix == ".img":
-        raise ValueError(f"{path}: HFA (.img) rasters are not ported to "
-                         "hipims_tpu_torch yet (ROADMAP.md, queue 1)")
+    if magic.startswith(b"EHFA_HEADER_TAG"):
+        from .hfa import read_hfa
+        return read_hfa(path)
     if magic[:2] in (b"II", b"MM") and magic[2:3] in (b"*", b"\x00"):
         return _read_tiff(path)
+    suffix = path.suffix.lower()
     if suffix in (".tif", ".tiff"):
         return _read_tiff(path)
+    if suffix == ".img":
+        from .hfa import read_hfa
+        return read_hfa(path)
     return _read_asc(path)
 
 
@@ -411,7 +425,7 @@ def write_raster(path, raster: Raster, fmt: Optional[str] = None):
     elif fmt in ("tif", "tiff", "gtiff"):
         _write_tiff(path, raster)
     elif fmt in ("hfa", "img"):
-        raise ValueError("HFA (.img) output is not ported to "
-                         "hipims_tpu_torch yet (ROADMAP.md, queue 1)")
+        from .hfa import write_hfa
+        write_hfa(path, raster)
     else:
         raise ValueError(f"unsupported raster output format '{fmt}'")

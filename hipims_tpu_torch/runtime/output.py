@@ -6,9 +6,11 @@ nodata floor, velocity = Q/h (nodata when dry), Froude = |v|/sqrt(gh),
 discharge scaled by cell resolution, FSL/maxFSL masked on dry or walled
 cells, -9999 nodata, bottom-up row order.
 
-Only the gathered path is ported: every output event copies the state to
-the host once.  Streamed (bounded-memory) writers and gauge time series are
-listed in ROADMAP.md (queue 1).
+Point gauges (GaugeOutputWriter, an extension over the reference) append
+one CSV row per output event.  Only the gathered path is ported: every
+output event copies the state to the host once.  Streamed (bounded-memory)
+writers, and the gauge writer's device-side sampling that goes with them,
+wait for the multi-device work (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ from ..utils import time_label
 
 NODATA = -9999.0
 _EPS = 1e-8
+
+VALUE_NAMES = ("depth", "maxdepth", "fsl", "maxfsl", "velocityx",
+               "velocityy", "dischargex", "dischargey", "froude", "dem",
+               "manningcoefficient")
 
 def derive_field(value: str, state, static, resolution: float,
                  datum: float = 0.0) -> np.ndarray:
@@ -82,6 +88,77 @@ def domain_volume(view, domain) -> float:
     h = np.maximum(z - zb, 0.0)
     h[np.asarray(view.state_logical.zmax) <= C.NODATA] = 0.0
     return float(h.sum() * domain.dx * domain.dy)
+
+
+class GaugeOutputWriter:
+    """Appends point-gauge samples of one field to a CSV at every output
+    time: one row per time, one column per gauge (the same file as the
+    JAX package's writer, row for row)."""
+
+    def __init__(self, value, gauges, target_path, domain):
+        """gauges: [(x_world, y_world, name)]; gauges off the grid are
+        dropped."""
+        import os
+        self.value = value
+        self.domain = domain
+        self.target_path = target_path
+        os.makedirs(os.path.dirname(str(target_path)) or ".", exist_ok=True)
+        self.cells = []
+        names = []
+        for x, y, name in gauges:
+            ci = int((x - domain.xll) / domain.dx)
+            ri = int((y - domain.yll) / domain.dy)
+            if 0 <= ri < domain.rows and 0 <= ci < domain.cols:
+                self.cells.append((ri, ci))
+                names.append(name)
+        with open(target_path, "w") as f:
+            f.write("Time (s)," + ",".join(names) + "\n")
+
+    def __call__(self, sim, t: float):
+        # Every field is derived cell by cell, so derive it on the gauge
+        # cells alone.
+        idx = tuple(np.asarray(self.cells, dtype=np.int64).reshape(-1, 2).T)
+        state, static = (type(v)(*(np.asarray(a)[idx] for a in v))
+                         for v in (sim.state_logical, sim.static_logical))
+        vals = derive_field(self.value, state, static, sim.domain.dx,
+                            datum=sim.domain.datum)
+        # Derived fields set the sentinel exactly; a tight absolute
+        # tolerance maps it to 0 without a wide isclose window around
+        # real near--9999 values.
+        vals = [0.0 if abs(v - NODATA) <= 1e-6 else v for v in vals]
+        with open(self.target_path, "a") as f:
+            f.write(f"{t:.6f}," + ",".join(f"{v:.6f}" for v in vals) + "\n")
+
+
+class CompositeOutputWriter:
+    """Fans one output event out to several writers (rasters + gauges)."""
+
+    def __init__(self, writers):
+        self.writers = list(writers)
+
+    def __call__(self, sim, t: float):
+        for w in self.writers:
+            w(sim, t)
+
+
+def read_gauge_map(path):
+    """(x, y, name) rows from a gauge map CSV (the shape of the cell
+    boundary map files, reference: CBoundaryCell::importMap); a row
+    without a name is called G<n>."""
+    import csv
+    gauges = []
+    with open(path, newline="") as f:
+        for rec in csv.reader(f):
+            rec = [c.strip() for c in rec if c.strip() != ""]
+            if len(rec) < 2:
+                continue
+            try:
+                x, y = float(rec[0]), float(rec[1])
+            except ValueError:
+                continue
+            name = rec[2] if len(rec) >= 3 else f"G{len(gauges) + 1}"
+            gauges.append((x, y, name))
+    return gauges
 
 
 class RasterOutputWriter:

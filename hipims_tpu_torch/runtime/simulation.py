@@ -69,12 +69,17 @@ class SimulationConfig:
 
 
 class _OutputSnapshot:
-    """One output event's host copy of the state and static fields; every
-    other attribute is the simulation's."""
+    """One output event's host copy of the state and the static fields,
+    shared by the writers and the checkpoint, so an event copies the state
+    off the device once; every other attribute is the simulation's.  The
+    grid is never padded, so the full and the logical arrays are the
+    same."""
 
     def __init__(self, sim: "Simulation"):
         self._sim = sim
-        self.state_logical = FlowState(*(a.cpu().numpy() for a in sim.state))
+        self.write_files = sim.write_outputs
+        self.state_full = FlowState(*(a.cpu().numpy() for a in sim.state))
+        self.state_logical = self.state_full
         self.static_logical = sim.static_logical
 
     def __getattr__(self, name):
@@ -117,7 +122,8 @@ class Simulation:
         dtype = torch.float64 if config.dtype == "float64" else torch.float32
         self.dtype = dtype
         self.compensated = config.dtype == "float32c"
-        self.boundaries = tuple(b.to(self.device, dtype) for b in boundaries)
+        self.boundaries = tuple(b.to(self.device, dtype, domain)
+                                for b in boundaries)
 
         # Closed-edge walls span the scheme's static ring; single precision
         # shifts the vertical datum out of the arithmetic (Domain.build).
@@ -149,6 +155,12 @@ class Simulation:
         self._host_carry = self._read_carry()
         self.total_steps = 0
         self.total_skipped = 0
+        # Output events: writers run where write_outputs is set; a
+        # checkpoint is (re)written at every event when checkpoint_path is
+        # set (runtime/checkpoint.py).  wall_start is set by run().
+        self.write_outputs = True
+        self.checkpoint_path = None
+        self.wall_start = None
 
     # ------------------------------------------------------------------
     def _run_batch(self, state: FlowState, carry, static: DomainStatic,
@@ -248,14 +260,23 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def emit_output(self, t: float):
-        """One output event: gather the state to the host once, then run
-        the writers."""
-        if self.output_writer is not None:
-            self.output_writer(_OutputSnapshot(self), t)
+        """One output event: copy the state to the host once, write the
+        checkpoint (when checkpoint_path is set) and run the writers."""
+        if self.output_writer is None and self.checkpoint_path is None:
+            return
+        snap = _OutputSnapshot(self)
+        if self.checkpoint_path is not None:
+            from .checkpoint import save_checkpoint
+            save_checkpoint(self.checkpoint_path, self, snapshot=snap)
+        if self.output_writer is not None and self.write_outputs:
+            self.output_writer(snap, t)
 
     def run(self, progress: Optional[Callable] = None):
-        """Full run with outputs at every output_frequency interval."""
+        """Full run with outputs at every output_frequency interval.  On a
+        resumed simulation, output events at or before the resume time
+        are skipped (they belong to the original run)."""
         cfg = self.config
+        self.wall_start = time.monotonic()
         t_start = self.t
         n_outputs = int(round(cfg.duration / cfg.output_frequency))
         for i in range(1, n_outputs + 1):

@@ -3,8 +3,11 @@
 Runs the model to WARM_UP_S simulated seconds, then times BATCHES batches
 of STEPS steps each (host clock around work that ends in a device
 synchronisation), then runs one more batch under ``torch.profiler`` and
-prints the device's busy share of that batch and the device time of the
-TOP kernels per step.  Output events are not written.
+prints the device's busy share of that batch, the device time of the
+TOP kernels per step, and the host reads and copies in that batch
+(``aten::item``, ``cudaMemcpy*``, synchronisations: the batch loop
+promises none but the final synchronise).  Output events are not
+written.
 
     python -m hipims_tpu_torch.tools.profile_batch -c model.xml \
         [--muscl-variant split12|recompute]
@@ -93,6 +96,12 @@ def main(argv=None) -> int:
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:TOP]:
         print(f"  {us / STEPS / 1e3:.4f} ms/step  "
               f"{count / STEPS:5.1f}/step  {key[:90]}")
+    reads = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("aten::item", "aten::_local_scalar_dense")
+             or "Memcpy" in e.key or "Synchronize" in e.key}
+    print(f"host reads and copies in the profiled batch of {STEPS} steps: "
+          + (", ".join(f"{k} x{n}" for k, n in sorted(reads.items()))
+             or "none"))
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Logging and misc utilities."""
+"""Logging, timing and misc utilities."""
 
 
 def time_label(t) -> str:

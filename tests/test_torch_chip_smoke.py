@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,11 +66,69 @@ def test_muscl_main_path_on_cpu(tmp_path):
 
 
 def test_api_path_on_cpu(tmp_path):
-    """Phase 4c's recompute-variant run through load_config ->
-    Simulation.run, on the CPU (plain versions, so no launches)."""
+    """Phase 4c's recompute-variant run through the embedding API
+    (simulation_load -> launch on a thread -> field in on_output), on the
+    CPU (plain versions, so no launches)."""
     res = chip_smoke.run_api_path(tmp_path, "cpu", 32, 48, 30.0,
                                   "recompute", mass_tol=0.05)
     assert res["steps"] > 0 and not any(res["launches"].values())
+    assert not list((tmp_path / "output").glob("*"))   # no raster written
+
+
+def test_radar_path_on_cpu(tmp_path):
+    """Phase 4f's model and checks at 96x128 and 60 s (rain frames every
+    20 s on 50 m cells, outputs every 30 s): run B resumed from run A's
+    30 s checkpoint writes no 30 s raster, and its 60 s raster and gauge
+    row are bit-equal to A's (checked inside); A's mass balance against
+    the frames' rain minus the loss; the band DEMs stitched equal the
+    loader's bed; the output events are timed part by part."""
+    from hipims_tpu_torch.runtime import checkpoint, output
+
+    res = chip_smoke.run_radar_path(tmp_path, "cpu", 96, 128, 60.0, 30.0,
+                                    interval=20.0, rain_cell=50.0,
+                                    mass_tol=0.05)
+    a, b = res["a"], res["b"]
+    assert not any(a["launches"].values()) and not any(b["launches"].values())
+    assert 0 < b["steps"] < a["steps"]
+    assert abs(res["rel"]) < 0.05 and res["expected"] > 0.0
+    assert [set(e) for e in res["events_a"]] == \
+        [{"copy", "raster", "gauge", "checkpoint"}] * 2
+    assert [set(e) for e in res["events_b"]] == [{"copy", "raster", "gauge"}]
+    header, *rows = res["gauges"]
+    assert header.split(",")[1:] == [f"G{k}" for k in range(1, 9)]
+    assert [r.split(",")[0] for r in rows] == ["30.000000", "60.000000"]
+    assert all(float(v) > 0.0 for v in rows[-1].split(",")[1:])
+    assert sorted(p.name for p in (tmp_path / "topography").iterdir()) == \
+        ["dem_part0.img", "dem_part1.img"]
+    assert len(list((tmp_path / "boundaries").glob("radar_*.asc"))) == 4
+    # The timing patches are undone.
+    assert output.GaugeOutputWriter.__call__.__name__ == "__call__"
+    assert checkpoint.save_checkpoint.__module__ == checkpoint.__name__
+
+
+def test_radar_model_loads_as_two_bands(tmp_path):
+    """The radar model is a decomposed model: two <domain> row bands of
+    HFA DEMs overlapping by 4 rows each side, stitched into one grid,
+    with one gridded and one loss boundary, a raster and a gauge
+    target."""
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.ops.boundaries import (GriddedBoundary,
+                                                 UniformBoundary)
+
+    xml = chip_smoke.write_radar_model(tmp_path, 40, 56, 600.0, 300.0)
+    text = xml.read_text()
+    assert text.count("<domain ") == 2 and 'type="gridded"' in text
+    model = load_config(xml)
+    np.testing.assert_array_equal(
+        model.domain.zb, chip_smoke.glasgow_bed(40, 56, 2.0).astype(
+            np.float32))
+    (rain, loss) = model.boundaries
+    assert isinstance(rain, GriddedBoundary) and isinstance(loss,
+                                                            UniformBoundary)
+    assert rain.series.shape == (3, 1, 1) and rain.interval == 300.0
+    assert ((rain.series >= 6.0) & (rain.series <= 70.8)).all()
+    assert [t["kind"] for t in model.output_targets] == ["raster",
+                                                         "timeseries"]
 
 
 def test_inertial_main_path_on_cpu(tmp_path):

@@ -8,9 +8,10 @@ import torch
 from chip_smoke import write_glasgow_model
 from hipims_tpu.cli import main as jax_main
 from hipims_tpu.io import raster as j_raster
-from hipims_tpu.tools.model_builder import build_dam_break, build_lake_at_rest
 from hipims_tpu_torch.cli import main as torch_main
 from hipims_tpu_torch.io import raster as t_raster
+from hipims_tpu_torch.tools.model_builder import (build_dam_break,
+                                                build_lake_at_rest)
 
 torch.set_num_threads(1)
 
@@ -114,8 +115,8 @@ def test_reference_command_line_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "2"], ["--distributed", "env"],
-                                  ["--checkpoint", "c.npz"],
-                                  ["--resume", "c.npz"],
+                                  ["--mesh-shape", "2x1"],
+                                  ["--mesh", "2", "--checkpoint", "c.npz"],
                                   ["--io-mode", "stream"]])
 def test_unported_flags_exit_1(tmp_path, argv, capsys):
     build_dam_break(tmp_path)
@@ -174,7 +175,7 @@ def test_kernel_ab_counts_sass():
     assert count_sass(dump) == {"_Z4stepPf": (3, 1), "_Z4donev": (1, 0)}
 
 
-@pytest.mark.parametrize("fmt", ["asc", "tif"])
+@pytest.mark.parametrize("fmt", ["asc", "tif", "img"])
 def test_raster_write_byte_equal(tmp_path, fmt):
     rng = np.random.default_rng(0)
     data = rng.uniform(-5, 50, (13, 21))

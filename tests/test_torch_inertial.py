@@ -28,7 +28,6 @@ from hipims_tpu.runtime import Simulation as JSimulation
 from hipims_tpu.runtime import SimulationConfig as JConfig
 from hipims_tpu.state import DomainStatic as JStatic
 from hipims_tpu.state import FlowState as JState
-from hipims_tpu.tools.model_builder import build_dam_break
 from hipims_tpu_torch.cli import main as torch_main
 from hipims_tpu_torch.domain import Domain
 from hipims_tpu_torch.io import raster as t_raster
@@ -39,6 +38,7 @@ from hipims_tpu_torch.ops.inertial import inertial_step
 from hipims_tpu_torch.ops.kernels.stencil import KERNELS, stencil_step
 from hipims_tpu_torch.runtime import Simulation, SimulationConfig
 from hipims_tpu_torch.state import from_numpy, to_numpy
+from hipims_tpu_torch.tools.model_builder import build_dam_break
 from tests.test_godunov_oracle import random_domain
 from tests.test_torch_simulation import _domains, _terrain
 
