@@ -50,6 +50,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rasters every 300 s, through the CLI: every step launches K1; finite
    rasters; the volume positive and not falling from the first output
    event to the second; its ratio to 400 m3/s x t is printed;
+3d. K1, K4, K3 and K5a-C in mesh mode (a halo-extended block: its
+   origin, the logical grid and its owned cells) against their plain
+   versions, f64 / f32 / f32c, on the four blocks of a 2x2 split of the
+   2944x3072 random domain extended by window-8 pads (9 cells for K1 and
+   K4, 17 for the MUSCL correctors) into a zero frame, and on a ragged
+   1297x1681 south-east block; each block's owned cells must equal the
+   whole-grid kernel's bit for bit; each kernel is timed at its default
+   options on the whole grid (beside phase 3's time in the same run) and
+   in mesh mode over the four blocks;
 4f. a real model directory at 2944x3072 (write_radar_model): the
    phase-4 terrain as two overlapping ``<domain>`` row bands whose DEMs
    are HFA (.img) files, radar rain as ``<timeseries type="gridded">``
@@ -63,19 +72,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and stitched equal the loader's bed.  Prints walls, steps, the seconds
    of each output event (host copy, raster, gauge, checkpoint) and the
    checkpoint's size;
+4g. the phase-4 model through the CLI with ``--mesh-shape 2x2`` (four
+   blocks on the card, lock-step: ``syncMethod="timestep"``), 300 s: its
+   300 s rasters bit-equal to phase 4's, the mass balance, 4 K1 launches
+   per step; then the phase-4b MUSCL model so, 150 s, its rasters
+   bit-equal to 4b's at 150 s;
+4h. phase 4f's model directory through the CLI with ``--mesh-shape
+   2x1``, 300 s: two row blocks, the forecast window from the two
+   ``<domain>``s' overlap, the frozen-speed dt with its re-runs; the
+   mass balance within 1% of the frames' rain minus the loss, and the
+   mean and max |depth - 4f run A's 300 s depth| within the JAX package's
+   window-mode bars (mean 0.03 m, max 0.3 m: tests/test_sharding.py);
 5. the first slice whole: the phase-4 model at 128x128 and 120 s, in
    float64 ("double-strict"), on the card and on the CPU (plain
    versions); the final fields must agree within the f32c bounds; 5b: the
    same for MUSCL; 5c: for the inertial model; 5d: for the breach; 5e:
    for phase 4f's model (50 m rain cells, frames every 60 s), whose gauge
-   rows must agree too.
+   rows must agree too; 5f: Godunov, MUSCL (split12 and recompute) and
+   inertial at 128x128 as a 2x2 mesh in forecast windows of 4 steps with
+   the frozen-speed dt, card against CPU (MUSCL for 60 s: MESH_SLICES).
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
    tests/test_torch_cli.py.)
 
-The line before the last is a JSON record of the seven kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+The line before the last is a JSON record of the seven kernels (with
+each kernel's launches in the mesh phases 4g, 4h and 5f); the last line
+is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this file, it prints no result and exits with status 2.
 Terrain and inputs are made from fixed seeds; nothing is downloaded.
 """
@@ -120,7 +143,7 @@ XML = """<?xml version="1.0"?>
     <parameter name="duration" value="{duration}" />
     <parameter name="outputFrequency" value="{outfreq}" />
     <parameter name="floatingPointPrecision" value="{precision}" />
-    <domainSet>
+    <domainSet{sync}>
       <domain type="cartesian">
         <data sourceDir="topography/" targetDir="output/">
           <dataSource type="raster" value="structure,dem" source="dem.tif" />
@@ -181,11 +204,13 @@ def _write_dem(root, bed, dx):
 
 
 def write_glasgow_model(root, rows, cols, duration, outfreq,
-                        precision="double", dx=2.0, scheme="godunov"):
+                        precision="double", dx=2.0, scheme="godunov",
+                        sync=None):
     """Write the Glasgow-class model (the terrain and rain/drain of
     tools/bench_e2e.py build_glasgow_class) at any extent, with the XML's
-    ``scheme`` name; returns the XML path.  Uses the port's own raster
-    writer."""
+    ``scheme`` name and, given ``sync``, ``<domainSet syncMethod>`` (a
+    mesh's exchange: none is the reference's default, "forecast");
+    returns the XML path.  Uses the port's own raster writer."""
     root = Path(root)
     _write_dem(root, glasgow_bed(rows, cols, dx), dx)
     (root / "boundaries" / "rain.csv").write_text(
@@ -196,7 +221,8 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
     xml.write_text(XML.format(
         name="glasgow-class", desc="Synthetic Glasgow-class pluvial model",
         duration=duration, outfreq=outfreq, precision=precision,
-        manning=0.04, scheme=scheme, boundaries=RAIN_BOUNDARIES))
+        manning=0.04, scheme=scheme, boundaries=RAIN_BOUNDARIES,
+        sync=f' syncMethod="{sync}"' if sync else ""))
     return xml
 
 
@@ -354,7 +380,8 @@ def write_thamesmead_model(root, rows, cols, duration, outfreq,
     xml.write_text(XML.format(
         name="thamesmead-class", desc="Synthetic Thamesmead-class breach",
         duration=duration, outfreq=outfreq, precision=precision,
-        manning=0.035, scheme="godunov", boundaries=BREACH_BOUNDARY))
+        manning=0.035, scheme="godunov", boundaries=BREACH_BOUNDARY,
+        sync=""))
     return xml
 
 
@@ -686,11 +713,13 @@ def _check_rasters(root, rows, cols, duration, outfreq):
 
 
 def run_main_path(root, device, rows, cols, duration, outfreq,
-                  mass_tol=MASS_BALANCE_REL, scheme="godunov"):
-    """Phases 4, 4b and 4d: write the pluvial model with the XML's
-    ``scheme`` name, run it through the CLI on ``device`` ("gpu" or
-    "cpu"), check outputs and mass balance.  Returns a dict of what it
-    measured, with the launches of every kernel wrapper during the run.
+                  mass_tol=MASS_BALANCE_REL, scheme="godunov", sync=None,
+                  extra=()):
+    """Phases 4, 4b, 4d and 4g: write the pluvial model with the XML's
+    ``scheme`` name (and ``sync``, see write_glasgow_model), run it through
+    the CLI on ``device`` ("gpu" or "cpu") with the ``extra`` arguments,
+    check outputs and mass balance.  Returns a dict of what it measured,
+    with the launches of every kernel wrapper during the run.
 
     Rain and loss apply in hydrological chunks of >= 1 s, so the last
     partial chunk (< 1 s of forcing) is missing at the end of a run:
@@ -699,8 +728,8 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
     from hipims_tpu_torch.models import get_scheme
 
     xml = write_glasgow_model(root, rows, cols, duration, outfreq,
-                              scheme=scheme)
-    res = _run_cli(xml, device)
+                              scheme=scheme, sync=sync)
+    res = _run_cli(xml, device, *extra)
     _check_rasters(root, rows, cols, duration, outfreq)
     vols, n_out = res["volumes"], int(round(duration / outfreq))
     if len(vols) != n_out:
@@ -960,6 +989,262 @@ def phase_slice_gpu_vs_cpu(torch, xml):
     return g.total_steps, worst
 
 
+# Phase 3d: the four mesh-mode kernels, each as a step takes it (K3 and
+# K5a-C behind their predictor, whose planes the plain corrector is also
+# fed), with the mesh options ``mesh`` (none: the one-device defaults).
+MESH_KERNELS = ("godunov_fused", "inertial_fused", "muscl_correct",
+                "muscl_correct_recompute")
+
+
+def _mesh_step(name, state, static, comp, dt, params, plain=False, pred=None,
+               **mesh):
+    """Kernel ``name`` (or, with ``plain``, its plain version) of
+    MESH_KERNELS on the inputs; K3 and K5a-C take ``pred`` (their
+    predictor's planes).  Returns the step's result."""
+    from hipims_tpu_torch.ops.kernels import muscl_split as ms
+    from hipims_tpu_torch.ops.kernels import stencil as st
+
+    if name in ("godunov_fused", "inertial_fused"):
+        scheme = "godunov" if name == "godunov_fused" else "inertial"
+        fn = st.PLAIN[scheme] if plain else getattr(st, name)
+        return fn(state, static, dt, params, comp=comp,
+                  simplified_speed=scheme == "inertial", **mesh)
+    fn = ms.muscl_correct_plain if plain else getattr(ms, name)
+    return fn(state, static, pred, dt, params, comp=comp, **mesh)
+
+
+def _mesh_pred(name, state, static, dt, params):
+    """The predictor planes kernel ``name`` takes (K2's for K3, K5a-P's
+    for K5a-C), from the predictor kernel; None for K1 and K4."""
+    from hipims_tpu_torch.ops.kernels import muscl_split as ms
+
+    if name == "muscl_correct":
+        return ms.muscl_predict(state, static, dt, params)
+    if name == "muscl_correct_recompute":
+        return ms.muscl_predict_base(state, static, dt, params)
+    return None
+
+
+def mesh_blocks(rows, cols, ragged=(1297, 1681)):
+    """Phase 3d's blocks of a rows x cols grid: the four of a 2x2 split,
+    then a ``ragged`` block at the south-east corner (1297x1681: one row
+    past a chunk and one column past a strip of either halo, as in CASES),
+    each as (r0, nr, c0, nc)."""
+    from hipims_tpu_torch.parallel.mesh import block_geometry
+
+    owns = [own for _, own in sorted(block_geometry(rows, cols,
+                                                    (2, 2)).items())]
+    return owns + [(rows - ragged[0], ragged[0], cols - ragged[1],
+                    ragged[1])]
+
+
+def phase_mesh_vs_plain(torch, device, times):
+    """Phase 3d: K1, K4, K3 and K5a-C in mesh mode on the blocks of
+    mesh_blocks, each extended by its window-8 pads into a zero frame
+    (parallel/halo_deep.py), against their plain versions with the same
+    options; each block's owned cells and max speed must equal the
+    whole-grid kernel's, bit for bit.  Times each kernel at its default
+    options on the whole grid, beside phase 3's time (``times``) of the
+    same run, and in mesh mode over the four even blocks.  Returns the
+    largest |diff| per kernel and the times per (kernel, mode)."""
+    from hipims_tpu_torch.ops.godunov import SchemeParams
+    from hipims_tpu_torch.ops.timestep import max_wave_speed
+    from hipims_tpu_torch.parallel.halo_deep import extend, halo_pads
+    from hipims_tpu_torch.state import DomainStatic, FlowState
+
+    params = SchemeParams(dx=2.0, dy=2.0)
+    rows, cols, reps, _ = CASES[-1]
+    arrs = random_domain(0, rows, cols)
+    owns = mesh_blocks(rows, cols)
+    worst = {n: 0.0 for n in MESH_KERNELS}
+    mesh_times = {}
+    for mode in ("f64", "f32", "f32c"):
+        state, static, comp, dt = _card_inputs(torch, device, arrs, mode)
+        for name in MESH_KERNELS:
+            radius = 2 if name.startswith("muscl") else 1
+            pads = halo_pads(8, radius)
+            pred = _mesh_pred(name, state, static, dt, params)
+            whole = _mesh_step(name, state, static, comp, dt, params,
+                               pred=pred)
+            runs = []
+            for own in owns:
+                r0, nr, c0, nc = own
+
+                def ext(a):
+                    return (None if a is None
+                            else extend(a, own, pads, a.device))
+
+                b_state = FlowState(*map(ext, state))
+                b_static = DomainStatic(*map(ext, static))
+                b_comp = ext(comp)
+                b_pred = _mesh_pred(name, b_state, b_static, dt, params)
+                mesh = dict(origin=(r0 - pads[0], c0 - pads[1]),
+                            logical=(rows, cols),
+                            speed_window=(pads[0], nr, pads[1], nc))
+                got = _mesh_step(name, b_state, b_static, b_comp, dt, params,
+                                 pred=b_pred, **mesh)
+                want = _mesh_step(name, b_state, b_static, b_comp, dt,
+                                  params, plain=True, pred=b_pred, **mesh)
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name], _agree(
+                    f"{name} in mesh mode disagrees with the plain version "
+                    f"on block {own}", mode, _step_pairs(got, want)))
+                mine = (slice(pads[0], pads[0] + nr),
+                        slice(pads[1], pads[1] + nc))
+                theirs = (slice(r0, r0 + nr), slice(c0, c0 + nc))
+                planes = [*zip(got[0], whole[0])]
+                if comp is not None:
+                    planes.append((got[2], whole[2]))
+                owned_speed = max_wave_speed(
+                    *(a[theirs] for a in whole[0]), static.zb[theirs],
+                    params.quite_small, name == "inertial_fused")
+                if not (all(torch.equal(g[mine], w[theirs])
+                            for g, w in planes)
+                        and torch.equal(got[1], owned_speed)):
+                    raise RuntimeError(
+                        f"{name} {mode}: block {own}'s owned cells differ "
+                        "from the whole-grid kernel's")
+                runs.append((b_state, b_static, b_comp, b_pred, mesh))
+            default_ms = _time_ms(torch, lambda: _mesh_step(
+                name, state, static, comp, dt, params, pred=pred), reps)
+            mesh_ms = _time_ms(torch, lambda: [
+                _mesh_step(name, bs, bt, bc, dt, params, pred=bp, **m)
+                for bs, bt, bc, bp, m in runs[:4]], reps)
+            mesh_times[(name, mode)] = (default_ms, mesh_ms)
+        print(f"phase 3d: mesh-mode kernels vs plain, 2x2 blocks of "
+              f"{rows}x{cols} + a ragged {owns[-1][1]}x{owns[-1][3]} block, "
+              f"{mode}: agree "
+              f"(max|diff| so far "
+              + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+              + "), owned cells equal the whole-grid kernel's; ms default "
+              "options / phase 3 / mesh mode over 4 blocks: "
+              + ", ".join(f"{n} {mesh_times[(n, mode)][0]:.4f} / "
+                          f"{times[(n, rows, cols, mode)][0]:.4f} / "
+                          f"{mesh_times[(n, mode)][1]:.4f}"
+                          for n in MESH_KERNELS), flush=True)
+    return worst, mesh_times
+
+
+def _same_rasters(label, root, ref_root, t):
+    """Raise unless the depth and maxdepth rasters at ``t`` under ``root``
+    equal those under ``ref_root`` bit for bit."""
+    from hipims_tpu_torch.io.raster import read_raster
+
+    for value in ("depth", "maxdepth"):
+        a, b = (read_raster(Path(r) / "output" / f"{value}_{t:g}.tif").data
+                for r in (root, ref_root))
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"{label}: {value} at {t:g} s differs from "
+                               f"the one-device run's: max|diff| "
+                               f"{np.abs(a - b).max():.3e}")
+
+
+# Phase 4h's bars on |depth - the one-device depth| (m): the JAX package's
+# bars between window-mode and lock-step runs (tests/test_sharding.py
+# test_forecast_window_dt_deterministic_across_mesh), given before the run.
+WINDOW_DEPTH_BARS = (0.03, 0.3)
+
+
+def run_mesh_radar_path(root, device, rows, cols, duration, outfreq,
+                        ref_root, interval=300.0, rain_cell=1000.0,
+                        mass_tol=MASS_BALANCE_REL):
+    """Phase 4h: phase 4f's model through the CLI on ``device`` with
+    ``--mesh-shape 2x1``; reads the window and the re-runs from the log,
+    checks the mass balance against the frames' rain minus the loss and
+    the depth at ``duration`` against ``ref_root``'s (phase 4f run A)
+    within WINDOW_DEPTH_BARS.  Returns what it measured."""
+    from hipims_tpu_torch.io.raster import read_raster
+    from hipims_tpu_torch.models import get_scheme
+    from hipims_tpu_torch.runtime.output import NODATA
+    from hipims_tpu_torch.utils import time_label
+
+    root = Path(root)
+    xml = write_radar_model(root, rows, cols, duration, outfreq,
+                            interval=interval, rain_cell=rain_cell)
+    res = _run_cli(xml, device, "--mesh-shape", "2x1")
+    window = int(re.search(r"Window:\s+(\d+) step", res["log"]).group(1))
+    reruns = int(re.search(r"Windows re-run:\s+(\d+)",
+                           res["log"]).group(1))
+    expected = radar_volume(root, rows, cols, duration, interval,
+                            get_scheme("godunov").radius)
+    rel = (res["volumes"][-1] - expected) / expected
+    if abs(rel) > mass_tol:
+        raise RuntimeError(f"mesh radar mass balance off by {rel:+.4%}")
+    t = time_label(duration)
+    a, b = (read_raster(Path(r) / "output" / f"depth_{t}.tif").data
+            for r in (root, ref_root))
+    both = (a != NODATA) & (b != NODATA)
+    diff = np.abs(a - b)[both]
+    mean, top = float(diff.mean()), float(diff.max())
+    if mean > WINDOW_DEPTH_BARS[0] or top > WINDOW_DEPTH_BARS[1]:
+        raise RuntimeError(f"mesh radar depth differs from the one-device "
+                           f"run's by mean {mean:.3e}, max {top:.3e} m")
+    return dict(res, window=window, reruns=reruns, rel=rel,
+                expected=expected, mean_diff=mean, max_diff=top)
+
+
+# Phase 5f's slices: (label, the XML's scheme name, muscl_variant,
+# seconds simulated).  The MUSCL slices stop at 60 s, where the early dt
+# limit ends: past it the frozen-speed windows fall into a cycle on this
+# model's rain films in both packages (a window at the stale speed
+# diverges, its re-run at the diverged speed takes a dt of microseconds
+# and re-seeds the stale speed), and the JAX package's mesh run took 29664
+# steps without passing t = 60 s (ROADMAP.md section 3).
+MESH_SLICES = (("godunov", "godunov", None, 120.0),
+               ("MUSCL split12", "musclhancock", "split12", 60.0),
+               ("MUSCL recompute", "musclhancock", "recompute", 60.0),
+               ("inertial", "inertial", None, 120.0))
+
+
+def phase_mesh_slices(torch, root):
+    """Phase 5f: the 128x128 float64 slices of MESH_SLICES as a 2x2
+    mesh (four blocks on the card; four on the CPU), in forecast windows
+    of 4 steps with the frozen-speed dt, through load_config ->
+    Simulation.run; the final fields within the f32c bounds and the same
+    step counts.  Returns per slice (steps, window, re-runs, max|diff|)
+    and the kernels' launches in the card's runs."""
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.parallel import make_mesh
+
+    out, launches = {}, {n: 0 for n in kernel_wrappers()}
+    for label, scheme, variant, duration in MESH_SLICES:
+        xml = write_glasgow_model(Path(root) / label.replace(" ", "_"), 128,
+                                  128, duration, duration,
+                                  precision="double-strict", scheme=scheme)
+        sims = {}
+        for dev in ("cuda", "cpu"):
+            model = load_config(xml)
+            model.output_targets = []          # fields compared in memory
+            cfg = model.config
+            cfg.sync_method, cfg.forecast_window = "forecast", 4
+            cfg.forecast_dt, cfg.muscl_variant = "window", variant
+            mesh = make_mesh(4, shape=(2, 2), devices=None if dev == "cuda"
+                             else [torch.device("cpu")] * 4)
+            sim = model.simulation(mesh=mesh)
+            _reset_launches()
+            sim.run()
+            if dev == "cuda":
+                for n, c in _read_launches().items():
+                    launches[n] += c
+            sims[dev] = sim
+        g, c = sims["cuda"], sims["cpu"]
+        if (g.total_steps, g.window_reruns) != (c.total_steps,
+                                                c.window_reruns):
+            raise RuntimeError(f"5f {label}: steps / re-runs differ: card "
+                               f"{g.total_steps} / {g.window_reruns}, cpu "
+                               f"{c.total_steps} / {c.window_reruns}")
+        rtol, atol = TOL["f32c"]
+        worst = 0.0
+        for name, a, b in zip(("z", "zmax", "qx", "qy"), g.state, c.state):
+            excess, diff = _excess(a.cpu(), b, rtol, atol)
+            worst = max(worst, diff)
+            if excess > 0.0:
+                raise RuntimeError(f"5f {label}: card and CPU mesh runs "
+                                   f"differ in {name}: max|diff|={diff:.3e}")
+        out[label] = (g.total_steps, g.window, g.window_reruns, worst)
+    return out, launches
+
+
 def _expect_launches(label, launches, want):
     """Raise unless the wrappers named in ``want`` launched that many
     times (at least once) and every other wrapper not at all."""
@@ -1046,11 +1331,12 @@ KERNEL_SOURCES = {
 }
 
 
-def kernels_record(times, err, launches, cells, share):
+def kernels_record(times, err, launches, cells, share, mesh_launches):
     """The kernels line's entries: for each kernel its f32c kernel and
     plain times at ``cells`` cells (``times`` by (name, rows, cols,
     mode)), its largest |diff| against the plain version, its launches on
-    its main path, and its bound computed for these inputs."""
+    its main path and in the mesh phases (``mesh_launches``), and its
+    bound computed for these inputs."""
     record = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         (k_ms, p_ms), = [t for (n, r, c, m), t in times.items()
@@ -1062,7 +1348,7 @@ def kernels_record(times, err, launches, cells, share):
             replaces=f"hipims_tpu/ops/pallas/{replaces}",
             launches=launches[name], max_abs_err=err[name], ms=k_ms,
             plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-            library_ms=None))
+            library_ms=None, mesh_launches=mesh_launches[name]))
     return record
 
 
@@ -1115,6 +1401,11 @@ def main() -> int:
     err.update(err_c)
     times.update(times_c)
     times.update(muscl_times)
+    # Phase 3d: K1, K4, K3 and K5a-C in mesh mode (its launches are not a
+    # main path's).
+    mesh_err, _ = phase_mesh_vs_plain(torch, device, times)
+    for name, e in mesh_err.items():
+        err[name] = max(err[name], e)
 
     rows, cols = CASES[-1][:2]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1199,6 +1490,59 @@ def main() -> int:
               f"equals the loader's bed; last gauge row "
               f"{res_f['gauges'][-1]}", flush=True)
 
+        # Phase 4g: phases 4 and 4b as a 2x2 mesh of blocks on the card,
+        # lock-step, their rasters bit-equal to the one-device runs'.
+        mesh_launches = {n: 0 for n in kernel_wrappers()}
+        res_g = run_main_path(Path(tmp) / "mesh", "gpu", rows, cols, 300.0,
+                              300.0, sync="timestep",
+                              extra=("--mesh-shape", "2x2"))
+        _expect_launches("phase 4g", res_g["launches"], {
+            "godunov_fused": 4 * (res_g["steps"] + res_g["idle"])})
+        _same_rasters("phase 4g", Path(tmp) / "mesh", Path(tmp) / "main",
+                      300.0)
+        res_gb = run_main_path(Path(tmp) / "mesh_muscl", "gpu", rows, cols,
+                               150.0, 150.0, scheme="musclhancock",
+                               sync="timestep", extra=("--mesh-shape", "2x2"))
+        total = 4 * (res_gb["steps"] + res_gb["idle"])
+        _expect_launches("phase 4g MUSCL", res_gb["launches"], {
+            "muscl_predict": total, "muscl_correct": total})
+        _same_rasters("phase 4g MUSCL", Path(tmp) / "mesh_muscl",
+                      Path(tmp) / "muscl", 150.0)
+        for label, r, one, dur, one_dur in (
+                ("Godunov", res_g, res, 300.0, 600.0),
+                ("MUSCL", res_gb, res_b, 150.0, 300.0)):
+            for n, c in r["launches"].items():
+                mesh_launches[n] += c
+            print(_main_path_line(f"phase 4g: {label} as a 2x2 mesh "
+                                  "(lock-step)", rows, cols, dur, r, smi)
+                  + f"; rasters bit-equal to the one-device run's; wall per "
+                  f"simulated s {r['wall_s'] / dur:.4f} (one device "
+                  f"{one['wall_s'] / one_dur:.4f}), run per step "
+                  f"{r['run_s'] / (r['steps'] + r['idle']) * 1e3:.3f} ms "
+                  f"(one device {one['run_s'] / (one['steps'] + one['idle']) * 1e3:.3f})",
+                  flush=True)
+
+        # Phase 4h: phase 4f's model as two row blocks in forecast windows.
+        res_h = run_mesh_radar_path(Path(tmp) / "mesh_radar", "gpu", rows,
+                                    cols, 300.0, 150.0,
+                                    ref_root=Path(tmp) / "radar")
+        _expect_launches("phase 4h", res_h["launches"], {
+            "godunov_fused": 2 * (res_h["steps"] + res_h["idle"]
+                                  + res_h["window"] * res_h["reruns"])})
+        for n, c in res_h["launches"].items():
+            mesh_launches[n] += c
+        print(f"phase 4h: radar model as a 2x1 mesh {rows}x{cols} f32c, "
+              f"300 s: window {res_h['window']} steps, {res_h['reruns']} "
+              f"windows re-run, {res_h['steps']} steps "
+              f"(+{res_h['idle']} idle), wall {res_h['wall_s']:.2f} s "
+              f"(set-up {res_h['wall_s'] - res_h['run_s']:.1f} s, run with "
+              f"outputs {res_h['run_s']:.1f} s) on {smi}; mass balance "
+              f"{res_h['rel']:+.4%} of the frames' rain - loss; |depth - "
+              f"4f run A's| mean {res_h['mean_diff']:.4e} m, max "
+              f"{res_h['max_diff']:.4e} m (bars {WINDOW_DEPTH_BARS[0]:g}, "
+              f"{WINDOW_DEPTH_BARS[1]:g}); launches: godunov_fused "
+              f"{res_h['launches']['godunov_fused']}", flush=True)
+
         # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
         # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
         slices = [(label, scheme, write_glasgow_model(
@@ -1219,6 +1563,17 @@ def main() -> int:
         print(f"phase 5e: 128x128 120 s f64 radar slice, card vs CPU: "
               f"{steps5} steps, fields and gauge rows agree (max|diff| "
               f"{err5:.3e})", flush=True)
+        slices, slice_launches = phase_mesh_slices(torch,
+                                                   Path(tmp) / "slice_mesh")
+        for n, c in slice_launches.items():
+            mesh_launches[n] += c
+        print("phase 5f: 128x128 f64 slices (MUSCL 60 s, the others 120 s) "
+              "as a 2x2 mesh in forecast windows (frozen-speed dt), card vs "
+              "CPU: "
+              + "; ".join(f"{label} {st5} steps, window {w}, {rr} re-runs, "
+                          f"max|diff| {e5:.3e}"
+                          for label, (st5, w, rr, e5) in slices.items()),
+              flush=True)
 
     # The kernels line: launches on each kernel's main path, times and
     # bounds of one f32c step at 9.04 M cells on the random domain.
@@ -1228,7 +1583,8 @@ def main() -> int:
         k in ("muscl_predict_base", "muscl_correct_recompute")},
         "inertial_fused": res_d["launches"]["inertial_fused"],
         "muscl_fused": k5b_launches}
-    record = kernels_record(times, err, launches, rows * cols, share)
+    record = kernels_record(times, err, launches, rows * cols, share,
+                            mesh_launches)
     print(f"K5b vs split12 max|diff| {split_diff:.3e}; second-order share "
           f"of the random domain {share:.4f}; chip_smoke wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -40,8 +40,8 @@ class DomainInfo:
 class SimulationHandle:
     """One loaded simulation with a launch/abort lifecycle."""
 
-    def __init__(self, model, device):
-        self._sim = model.simulation(device=device)
+    def __init__(self, model, device, mesh=None):
+        self._sim = model.simulation(device=device, mesh=mesh)
         self._thread: Optional[threading.Thread] = None
         self._abort = threading.Event()
         self._error: Optional[BaseException] = None
@@ -187,11 +187,14 @@ class _Aborted(Exception):
     pass
 
 
-def simulation_load(config_file, device=None) -> SimulationHandle:
+def simulation_load(config_file, device=None, mesh=None) -> SimulationHandle:
     """Load an XML model configuration (reference: SimulationLoad,
     src/main.cpp:180-200) onto ``device``: None is the first CUDA device,
-    and raises without CUDA."""
+    and raises without CUDA; or onto the blocks of ``mesh`` (a
+    ``parallel.Mesh``), whose first device is then the simulation's."""
     from .io.xml_config import load_config
+    if mesh is not None:
+        return SimulationHandle(load_config(config_file), device, mesh)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("simulation_load: CUDA is not available (no "

@@ -3,12 +3,16 @@
 Usage:
     python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
         [--checkpoint run.npz] [--resume run.npz]
+        [--mesh N] [--mesh-shape RxC]
 
 The reference's own command line (``-c model.xml -m -x dir -s``) runs
 too: ``-m`` and ``-x`` are accepted and ignored, each with a note.
 
 Runs on the first CUDA device unless ``--platform cpu`` is given, in which
-case the plain PyTorch versions of the kernels run on the CPU.
+case the plain PyTorch versions of the kernels run on the CPU.  ``--mesh``
+and ``--mesh-shape`` split the grid into blocks stepped in halo-deep
+windows (``parallel/``): on the visible CUDA devices, several blocks to a
+card where there are fewer cards than blocks, or all on the CPU.
 """
 
 from __future__ import annotations
@@ -53,9 +57,13 @@ def parse_args(argv=None):
     ap.add_argument("--resume", default=None, metavar="FILE",
                     help="resume from a checkpoint written with "
                          "--checkpoint (skips already-written outputs)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="split the grid into N blocks (a most-square "
+                         "mesh), stepped in halo-deep windows")
+    ap.add_argument("--mesh-shape", default=None, metavar="RxC",
+                    help="explicit mesh shape, e.g. 2x2")
     # Accepted so that a JAX command line fails with a clear message.
-    for flag in ("--mesh", "--mesh-shape", "--distributed"):
-        ap.add_argument(flag, default=None, help="not yet ported")
+    ap.add_argument("--distributed", default=None, help="not yet ported")
     return ap.parse_args(argv)
 
 
@@ -73,9 +81,7 @@ def main(argv=None):
                  "use --distributed (rank gating is automatic)")
     if args.code_dir:
         log.line("note: --code-dir ignored (no OpenCL sources to locate)")
-    unported = [f"--{k.replace('_', '-')}" for k in
-                ("mesh", "mesh_shape", "distributed")
-                if getattr(args, k) is not None]
+    unported = ["--distributed"] if args.distributed is not None else []
     if args.io_mode == "stream":
         unported.append("--io-mode stream")
     if unported:
@@ -118,11 +124,36 @@ def main(argv=None):
             else "cpu")
     log.line(f"  Device:      {device} ({name})")
 
+    mesh = None
+    if args.mesh or args.mesh_shape:
+        from .parallel import make_mesh
+        try:
+            shape = None
+            if args.mesh_shape:
+                a, b = args.mesh_shape.lower().split("x")
+                shape = (int(a), int(b))
+            n = args.mesh or shape[0] * shape[1]
+            mesh = make_mesh(n, shape=shape,
+                             devices=[device] * n if device.type == "cpu"
+                             else None)
+        except ValueError as e:
+            log.error(f"Invalid mesh: {e}")
+            return 1
+        log.line(f"  Mesh:        {mesh.shape} ({mesh.devices.size} "
+                 "blocks)")
+
     try:
-        sim = model.simulation(device=device)
+        sim = model.simulation(device=device, mesh=mesh)
     except (ValueError, NotImplementedError) as e:
         log.error(f"Invalid model configuration: {e}")
         return 1
+    if mesh is not None:
+        # The per-block table (the reference's per-domain table,
+        # src/CModel.cpp:343-462) and the exchange window.
+        from .runtime.progress import device_table
+        for ln in device_table(sim):
+            log.line(ln)
+        log.line(f"  Window:      {sim.window} step(s) per halo exchange")
     if args.resume:
         from .runtime.checkpoint import load_checkpoint
         try:
@@ -158,6 +189,8 @@ def main(argv=None):
         return 2
     wall = time.monotonic() - t0
     reporter.final(wall)
+    if mesh is not None:
+        log.line(f"  Windows re-run: {sim.window_reruns}")
     return 0
 
 

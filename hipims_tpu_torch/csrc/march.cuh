@@ -81,6 +81,72 @@ __device__ __forceinline__ int64_t march_index(int r, int rows, int cols,
   return int64_t(min(max(r, 0), rows - 1)) * cols + cc;
 }
 
+// Where the kernel's array lies in the logical grid, and which of its cells
+// feed the CFL partial.  On one device the array is the logical grid and
+// every cell is its own (whole_grid).  A mesh block is halo-extended
+// (hipims_tpu_torch/parallel/halo_deep.py): its [0, 0] cell is the global
+// cell (origin_y, origin_x), which may lie outside the grid (zero-filled
+// frame cells); the logical grid's static ring is frozen in global
+// coordinates (MeshLane::frozen), and only the block's owned cells, rows
+// [own_r0, own_r0 + own_nr) and columns [own_c0, own_c0 + own_nc) of the
+// array, count toward its CFL max (MeshLane::owned), so the max over the
+// blocks is the one-device max.  The TPU kernels take the same two options as
+// ``origin`` and ``speed_window``.
+struct MeshWindow {
+  int origin_y, origin_x;
+  int logical_rows, logical_cols;
+  int own_r0, own_nr, own_c0, own_nc;
+};
+
+inline MeshWindow whole_grid(int rows, int cols) {
+  return MeshWindow{0, 0, rows, cols, 0, rows, 0, cols};
+}
+
+// A MeshWindow's fields as the C entry points take them, and the
+// MeshWindow they make.
+#define MESH_WINDOW_ARGS                                                    \
+  int origin_y, int origin_x, int logical_rows, int logical_cols,           \
+      int own_r0, int own_nr, int own_c0, int own_nc
+#define MESH_WINDOW                                                         \
+  (swe::MeshWindow{origin_y, origin_x, logical_rows, logical_cols, own_r0, \
+                   own_nr, own_c0, own_nc})
+
+// Whether a window is the one-device default: the kernels then run their
+// MESH = false instantiation, the one-device kernel instruction for
+// instruction, so the options cost a one-device step nothing.
+inline bool is_whole_grid(const MeshWindow& m, int rows, int cols) {
+  return m.origin_y == 0 && m.origin_x == 0 && m.logical_rows == rows &&
+         m.logical_cols == cols && m.own_r0 == 0 && m.own_nr == rows &&
+         m.own_c0 == 0 && m.own_nc == cols;
+}
+
+// A lane's two tests against its MeshWindow: whether its cell in row r
+// lies on the logical grid's static ring of width RING (or outside the
+// grid), and whether the block owns it.  A lane's column is fixed for the
+// march, so the column's halves are taken once; with MESH false neither
+// test costs anything.
+template <bool MESH, int RING>
+struct MeshLane {
+  bool col_frozen = false, col_owned = true;
+
+  __device__ __forceinline__ MeshLane(const MeshWindow& m, int c) {
+    if (MESH) {
+      const int gx = m.origin_x + c;
+      col_frozen = (gx < RING) || (gx >= m.logical_cols - RING);
+      col_owned = (c >= m.own_c0) && (c < m.own_c0 + m.own_nc);
+    }
+  }
+  __device__ __forceinline__ bool frozen(const MeshWindow& m, int r) const {
+    if (!MESH) return false;
+    const int gy = m.origin_y + r;
+    return col_frozen || (gy < RING) || (gy >= m.logical_rows - RING);
+  }
+  __device__ __forceinline__ bool owned(const MeshWindow& m, int r) const {
+    if (!MESH) return true;
+    return col_owned && (r >= m.own_r0) && (r < m.own_r0 + m.own_nr);
+  }
+};
+
 // A value of the lane to the east (a halo lane 31 gets its own back).
 template <typename T>
 __device__ __forceinline__ T from_east(T v) {

@@ -27,8 +27,10 @@
 //     the dry clamp (judged on z + comp when COMP) BEFORE the max-FSL
 //     update, and the skips: disabled cell, a dry centre whose four
 //     neighbours have zmax below the threshold (a reference quirk),
-//     dt <= 0; the two-cell ring keeps its values; then the CFL speed of
-//     every cell of the new state, reduced to one partial max per block.
+//     dt <= 0; the two-cell ring keeps its values, and so does the logical
+//     grid's two-cell ring in global coordinates (a mesh block; march.cuh
+//     MeshWindow); then the CFL speed of every owned cell of the new state
+//     (every cell on one device), reduced to one partial max per block.
 //
 // What bounds them on an H100: device memory traffic.  Planes moved per
 // step (predictor in + out, then corrector in + out):
@@ -285,7 +287,7 @@ __device__ __forceinline__ swe::Face<T> muscl_north_face(const PredRow<T>& s,
                                     vs);
 }
 
-template <typename T, bool COMP, int SLOPES>
+template <typename T, bool COMP, int SLOPES, bool MESH>
 __global__ void __launch_bounds__(swe::MARCH_THREADS)
     muscl_correct_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
@@ -295,10 +297,11 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                          T* __restrict__ zmax_out, T* __restrict__ qx_out,
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                         int rows, int cols, int chunk, T inv_dx, T inv_dy,
-                         T vs, T qs, bool friction) {
+                         int rows, int cols, int chunk, swe::MeshWindow m,
+                         T inv_dx, T inv_dy, T vs, T qs, bool friction) {
   using namespace swe;
   const MarchPos p = march_pos<corrector_halo(SLOPES)>(rows, cols, chunk);
+  const MeshLane<MESH, 2> lane(m, p.c);
   const int64_t plane = int64_t(rows) * cols;
   const T dt = *dt_ptr;
 
@@ -398,7 +401,7 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
       T comp_o = comp_c;
       const bool ring = (r < 2) || (r >= rows - 2) || (p.c < 2) ||
-                        (p.c >= cols - 2);
+                        (p.c >= cols - 2) || lane.frozen(m, r);
       if (!ring) {
         const Quad<T> ex_n = extrap(cur.base, cur.sy, T(0.5));
         const Quad<T> ex_s = extrap(cur.base, cur.sy, T(-0.5));
@@ -472,7 +475,10 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       qx_out[i] = qx_o;
       qy_out[i] = qy_o;
       if (COMP) comp_out[i] = comp_o;
-      spd = nan_max(spd, cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false));
+      if (lane.owned(m, r)) {
+        spd =
+            nan_max(spd, cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, false));
+      }
     }
     fs = fn;
     low_s = low_c;
@@ -512,18 +518,24 @@ int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
             const T* n, const T* pred, const T* comp, T* z_out, T* zmax_out,
             T* qx_out, T* qy_out, T* comp_out, T* speeds, const T* dt,
             int rows, int cols, int chunk, int grid_x, int grid_y,
-            double inv_dx, double inv_dy, double vs, double qs, int friction,
-            void* stream) {
+            swe::MeshWindow m, double inv_dx, double inv_dy, double vs,
+            double qs, int friction, void* stream) {
   if (!swe::march_geometry_ok<corrector_halo(SLOPES)>(rows, cols, chunk,
                                                       grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
-  muscl_correct_kernel<T, COMP, SLOPES>
-      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
-         (cudaStream_t)stream>>>(
-          z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
-          comp_out, speeds, dt, rows, cols, chunk, T(inv_dx), T(inv_dy),
-          T(vs), T(qs), friction != 0);
+  // K5b (PREDICTED) runs on no mesh path: one instantiation.
+  auto kernel = muscl_correct_kernel<T, COMP, SLOPES, false>;
+  if constexpr (SLOPES != PREDICTED) {
+    if (!swe::is_whole_grid(m, rows, cols)) {
+      kernel = muscl_correct_kernel<T, COMP, SLOPES, true>;
+    }
+  }
+  kernel<<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+           (cudaStream_t)stream>>>(
+      z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
+      comp_out, speeds, dt, rows, cols, chunk, m, T(inv_dx), T(inv_dy), T(vs),
+      T(qs), friction != 0);
   return (int)cudaGetLastError();
 }
 
@@ -534,13 +546,13 @@ int correct_from(const T* z, const T* zmax, const T* qx, const T* qy,
                  const T* zb, const T* n, const T* pred, const T* comp,
                  T* z_out, T* zmax_out, T* qx_out, T* qy_out, T* comp_out,
                  T* speeds, const T* dt, int rows, int cols, int chunk,
-                 int grid_x, int grid_y, double inv_dx, double inv_dy,
-                 double vs, double qs, int friction, int slopes,
-                 void* stream) {
+                 int grid_x, int grid_y, swe::MeshWindow m, double inv_dx,
+                 double inv_dy, double vs, double qs, int friction,
+                 int slopes, void* stream) {
 #define MUSCL_CORRECT(SLOPES)                                                 \
   return correct<T, COMP, SLOPES>(z, zmax, qx, qy, zb, n, pred, comp, z_out,  \
                                   zmax_out, qx_out, qy_out, comp_out, speeds, \
-                                  dt, rows, cols, chunk, grid_x, grid_y,      \
+                                  dt, rows, cols, chunk, grid_x, grid_y, m,   \
                                   inv_dx, inv_dy, vs, qs, friction, stream)
   switch (slopes) {
     case LOADED:
@@ -581,24 +593,29 @@ int muscl_predict_f64(const double* z, const double* zmax, const double* qx,
 // REBUILT: pred holds the 4 base planes).  chunk, grid_x, grid_y:
 // ops/kernels/geometry.py march_geometry with the halo of the slope source
 // (1 and 2 lanes); speeds holds grid_x * grid_y partial maxima.
+// MESH_WINDOW_ARGS: the MeshWindow (march.cuh); one device passes 0, 0,
+// rows, cols, 0, rows, 0, cols.  The rebuilt slopes' edge test stays on
+// the array's own one-cell ring (on_edge_ring), as the predictor stores
+// them on the extended block.
 int muscl_correct_f32(const float* z, const float* zmax, const float* qx,
                       const float* qy, const float* zb, const float* n,
                       const float* pred, const float* comp, float* z_out,
                       float* zmax_out, float* qx_out, float* qy_out,
                       float* comp_out, float* speeds, const float* dt,
                       int rows, int cols, int chunk, int grid_x, int grid_y,
-                      double inv_dx, double inv_dy, double vs,
-                      double qs, int friction, int slopes, void* stream) {
+                      MESH_WINDOW_ARGS, double inv_dx, double inv_dy,
+                      double vs, double qs, int friction, int slopes,
+                      void* stream) {
   if (comp != nullptr) {
     return correct_from<float, true>(
         z, zmax, qx, qy, zb, n, pred, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
         inv_dx, inv_dy, vs, qs, friction, slopes, stream);
   }
   return correct_from<float, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, slopes, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      inv_dx, inv_dy, vs, qs, friction, slopes, stream);
 }
 
 int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
@@ -606,18 +623,18 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
                       const double* pred, double* z_out, double* zmax_out,
                       double* qx_out, double* qy_out, double* speeds,
                       const double* dt, int rows, int cols, int chunk,
-                      int grid_x, int grid_y, double inv_dx,
-                      double inv_dy, double vs, double qs, int friction,
-                      int slopes, void* stream) {
+                      int grid_x, int grid_y, MESH_WINDOW_ARGS,
+                      double inv_dx, double inv_dy, double vs, double qs,
+                      int friction, int slopes, void* stream) {
   return correct_from<double, false>(
       z, zmax, qx, qy, zb, n, pred, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, slopes, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      inv_dx, inv_dy, vs, qs, friction, slopes, stream);
 }
 
 // K5b: the whole step from the state, the corrector with slopes and base
 // PREDICTED (no predictor plane).  chunk, grid_x, grid_y: march_geometry
-// with two halo lanes, as K5a-C.
+// with two halo lanes, as K5a-C.  No mesh path runs it: the whole grid.
 int muscl_fused_f32(const float* z, const float* zmax, const float* qx,
                     const float* qy, const float* zb, const float* n,
                     const float* comp, float* z_out, float* zmax_out,
@@ -630,12 +647,14 @@ int muscl_fused_f32(const float* z, const float* zmax, const float* qx,
     return correct<float, true, PREDICTED>(
         z, zmax, qx, qy, zb, n, nullptr, comp, z_out, zmax_out, qx_out,
         qy_out, comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
-        inv_dx, inv_dy, vs, qs, friction, stream);
+        swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+        stream);
   }
   return correct<float, false, PREDICTED>(
       z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
-      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, stream);
+      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+      swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+      stream);
 }
 
 int muscl_fused_f64(const double* z, const double* zmax, const double* qx,
@@ -647,8 +666,9 @@ int muscl_fused_f64(const double* z, const double* zmax, const double* qx,
                     int friction, void* stream) {
   return correct<double, false, PREDICTED>(
       z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
-      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, stream);
+      qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+      swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+      stream);
 }
 
 }  // extern "C"

@@ -22,10 +22,13 @@
 //     dx: reference quirks), max-FSL before the dry clamp, and the new W
 //     and S discharges stored in qx and qy (a staggered layout);
 //   * skip masks: disabled cell, dry 5-point neighbourhood, dt <= 0;
-//   * the one-cell edge ring keeps its old values;
-//   * the CFL speed of every cell of the NEW state (sqrt(g h) alone when
-//     ``simplified``, as the inertial scheme runs), reduced to one partial
-//     max per block (the wrapper takes the max over the partials).
+//   * the one-cell edge ring keeps its old values, and so does the logical
+//     grid's one-cell ring in global coordinates (a mesh block; march.cuh
+//     MeshWindow);
+//   * the CFL speed of every owned cell of the NEW state (every cell on one
+//     device; sqrt(g h) alone when ``simplified``, as the inertial scheme
+//     runs), reduced to one partial max per block (the wrapper takes the
+//     max over the partials).
 //
 // What bounds them on an H100.  Per cell each reads 6 planes (z, zmax, qx,
 // qy, zb, n) and writes 4: at least 40 B/cell in f32 (48 B with the comp
@@ -90,6 +93,7 @@
 namespace {
 
 using swe::Face;
+using swe::MeshWindow;
 
 // One lane's column in one row: the first-order interface inputs.
 template <typename T>
@@ -114,7 +118,7 @@ __device__ __forceinline__ Face<T> north_face(const Column<T>& s,
                               vs);
 }
 
-template <typename T, bool COMP>
+template <typename T, bool COMP, bool MESH>
 __global__ void __launch_bounds__(swe::MARCH_THREADS)
     godunov_step_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                         const T* __restrict__ qx, const T* __restrict__ qy,
@@ -123,10 +127,12 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                         T* __restrict__ zmax_out, T* __restrict__ qx_out,
                         T* __restrict__ qy_out, T* __restrict__ comp_out,
                         T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                        int rows, int cols, int chunk, T inv_dx, T inv_dy,
-                        T vs, T qs, bool friction, bool simplified) {
+                        int rows, int cols, int chunk, MeshWindow m,
+                        T inv_dx, T inv_dy, T vs, T qs, bool friction,
+                        bool simplified) {
   using namespace swe;
   const MarchPos p = march_pos<1>(rows, cols, chunk);
+  const MeshLane<MESH, 1> lane(m, p.c);
   const T dt = *dt_ptr;
 
   // The chunk's first south face, from the row before it (a clamped copy
@@ -164,7 +170,7 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       T z_o = zc, zmax_o = zmax_c, qx_o = qx_c0, qy_o = qy_c0;
       T comp_o = comp_c;
       const bool ring = (r == 0) || (r == rows - 1) || (p.c == 0) ||
-                        (p.c == cols - 1);
+                        (p.c == cols - 1) || lane.frozen(m, r);
       if (!ring) {
         T zbl_e, c_e, zbl_w, c_w, zbl_n, c_n, zbl_s, c_s;
         local_datum(zc, fe.zbm, zbl_e, c_e);
@@ -231,8 +237,10 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       qx_out[i] = qx_o;
       qy_out[i] = qy_o;
       if (COMP) comp_out[i] = comp_o;
-      spd = nan_max(spd,
-                    cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
+      if (lane.owned(m, r)) {
+        spd = nan_max(
+            spd, cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
+      }
     }
     fs = fn;
     dry_s = dry_c;
@@ -293,7 +301,7 @@ __device__ __forceinline__ T face_drag(const FaceFlow<T>& f, T manning) {
   return f.dry ? T(0) : q;
 }
 
-template <typename T, bool COMP>
+template <typename T, bool COMP, bool MESH>
 __global__ void __launch_bounds__(swe::MARCH_THREADS)
     inertial_step_kernel(const T* __restrict__ z, const T* __restrict__ zmax,
                          const T* __restrict__ qx, const T* __restrict__ qy,
@@ -302,10 +310,11 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
                          T* __restrict__ zmax_out, T* __restrict__ qx_out,
                          T* __restrict__ qy_out, T* __restrict__ comp_out,
                          T* __restrict__ speeds, const T* __restrict__ dt_ptr,
-                         int rows, int cols, int chunk, T dx, T dy, T vs,
-                         T qs, bool simplified) {
+                         int rows, int cols, int chunk, MeshWindow m, T dx,
+                         T dy, T vs, T qs, bool simplified) {
   using namespace swe;
   const MarchPos p = march_pos<1>(rows, cols, chunk);
+  const MeshLane<MESH, 1> lane(m, p.c);
   const T dt = *dt_ptr;
 
   // The row before the chunk (a clamped copy for the first chunk, whose
@@ -355,7 +364,7 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       T z_o = zc, zmax_o = zmax_c, qx_o = cur.qx, qy_o = cur.qy;
       T comp_o = comp_c;
       const bool ring = (r == 0) || (r == rows - 1) || (p.c == 0) ||
-                        (p.c == cols - 1);
+                        (p.c == cols - 1) || lane.frozen(m, r);
       if (!ring) {
         const T d_fsl = (q_e - q_w + q_n - q_s) / dy;
         T z_new, comp_new = T(0);
@@ -388,8 +397,10 @@ __global__ void __launch_bounds__(swe::MARCH_THREADS)
       qx_out[i] = qx_o;
       qy_out[i] = qy_o;
       if (COMP) comp_out[i] = comp_o;
-      spd = nan_max(spd,
-                    cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
+      if (lane.owned(m, r)) {
+        spd = nan_max(
+            spd, cell_speed(z_o, zmax_o, qx_o, qy_o, zbc, qs, simplified));
+      }
     }
     q_s = q_next_s;
     n_c = n_next;
@@ -405,18 +416,20 @@ int launch_godunov(const T* z, const T* zmax, const T* qx, const T* qy,
                    const T* zb, const T* n, const T* comp, T* z_out,
                    T* zmax_out, T* qx_out, T* qy_out, T* comp_out, T* speeds,
                    const T* dt, int rows, int cols, int chunk, int grid_x,
-                   int grid_y, double inv_dx, double inv_dy,
+                   int grid_y, MeshWindow m, double inv_dx, double inv_dy,
                    double vs, double qs, int friction, int simplified,
                    void* stream) {
   if (!swe::march_geometry_ok<1>(rows, cols, chunk, grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
-  godunov_step_kernel<T, COMP>
-      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
-         (cudaStream_t)stream>>>(
-          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-          comp_out, speeds, dt, rows, cols, chunk, T(inv_dx),
-          T(inv_dy), T(vs), T(qs), friction != 0, simplified != 0);
+  const auto kernel = swe::is_whole_grid(m, rows, cols)
+                          ? godunov_step_kernel<T, COMP, false>
+                          : godunov_step_kernel<T, COMP, true>;
+  kernel<<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+           (cudaStream_t)stream>>>(
+      z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out, comp_out,
+      speeds, dt, rows, cols, chunk, m, T(inv_dx), T(inv_dy), T(vs), T(qs),
+      friction != 0, simplified != 0);
   return (int)cudaGetLastError();
 }
 
@@ -425,17 +438,19 @@ int launch_inertial(const T* z, const T* zmax, const T* qx, const T* qy,
                     const T* zb, const T* n, const T* comp, T* z_out,
                     T* zmax_out, T* qx_out, T* qy_out, T* comp_out, T* speeds,
                     const T* dt, int rows, int cols, int chunk, int grid_x,
-                    int grid_y, double dx, double dy, double vs, double qs,
-                    int simplified, void* stream) {
+                    int grid_y, MeshWindow m, double dx, double dy, double vs,
+                    double qs, int simplified, void* stream) {
   if (!swe::march_geometry_ok<1>(rows, cols, chunk, grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
-  inertial_step_kernel<T, COMP>
-      <<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
-         (cudaStream_t)stream>>>(
-          z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-          comp_out, speeds, dt, rows, cols, chunk, T(dx), T(dy), T(vs),
-          T(qs), simplified != 0);
+  const auto kernel = swe::is_whole_grid(m, rows, cols)
+                          ? inertial_step_kernel<T, COMP, false>
+                          : inertial_step_kernel<T, COMP, true>;
+  kernel<<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
+           (cudaStream_t)stream>>>(
+      z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out, comp_out,
+      speeds, dt, rows, cols, chunk, m, T(dx), T(dy), T(vs), T(qs),
+      simplified != 0);
   return (int)cudaGetLastError();
 }
 
@@ -444,7 +459,8 @@ int launch_inertial(const T* z, const T* zmax, const T* qx, const T* qy,
 // Every entry point returns the CUDA error code of its launch
 // (0 = cudaSuccess; cudaErrorInvalidValue for a geometry K1 cannot take).
 // The f32 entry points take comp == nullptr for the uncompensated
-// instantiation.
+// instantiation.  MESH_WINDOW_ARGS: the MeshWindow (march.cuh); one
+// device passes 0, 0, rows, cols, 0, rows, 0, cols.
 extern "C" {
 
 // K1.  chunk, grid_x, grid_y: ops/kernels/geometry.py
@@ -454,19 +470,19 @@ int godunov_step_f32(const float* z, const float* zmax, const float* qx,
                      const float* comp, float* z_out, float* zmax_out,
                      float* qx_out, float* qy_out, float* comp_out,
                      float* speeds, const float* dt, int rows, int cols,
-                     int chunk, int grid_x, int grid_y,
+                     int chunk, int grid_x, int grid_y, MESH_WINDOW_ARGS,
                      double inv_dx, double inv_dy, double vs, double qs,
                      int friction, int simplified, void* stream) {
   if (comp != nullptr) {
     return launch_godunov<float, true>(
         z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
         inv_dx, inv_dy, vs, qs, friction, simplified, stream);
   }
   return launch_godunov<float, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      inv_dx, inv_dy, vs, qs, friction, simplified, stream);
 }
 
 int godunov_step_f64(const double* z, const double* zmax, const double* qx,
@@ -474,12 +490,13 @@ int godunov_step_f64(const double* z, const double* zmax, const double* qx,
                      double* z_out, double* zmax_out, double* qx_out,
                      double* qy_out, double* speeds, const double* dt,
                      int rows, int cols, int chunk, int grid_x, int grid_y,
-                     double inv_dx, double inv_dy, double vs,
-                     double qs, int friction, int simplified, void* stream) {
+                     MESH_WINDOW_ARGS, double inv_dx, double inv_dy,
+                     double vs, double qs, int friction, int simplified,
+                     void* stream) {
   return launch_godunov<double, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, inv_dx,
-      inv_dy, vs, qs, friction, simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      inv_dx, inv_dy, vs, qs, friction, simplified, stream);
 }
 
 // K4.  chunk, grid_x, grid_y: ops/kernels/geometry.py march_geometry
@@ -490,19 +507,19 @@ int inertial_step_f32(const float* z, const float* zmax, const float* qx,
                       const float* comp, float* z_out, float* zmax_out,
                       float* qx_out, float* qy_out, float* comp_out,
                       float* speeds, const float* dt, int rows, int cols,
-                      int chunk, int grid_x, int grid_y, double dx,
-                      double dy, double vs, double qs, int simplified,
-                      void* stream) {
+                      int chunk, int grid_x, int grid_y, MESH_WINDOW_ARGS,
+                      double dx, double dy, double vs, double qs,
+                      int simplified, void* stream) {
   if (comp != nullptr) {
     return launch_inertial<float, true>(
         z, zmax, qx, qy, zb, n, comp, z_out, zmax_out, qx_out, qy_out,
-        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs,
-        qs, simplified, stream);
+        comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+        dx, dy, vs, qs, simplified, stream);
   }
   return launch_inertial<float, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs, qs,
-      simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      dx, dy, vs, qs, simplified, stream);
 }
 
 int inertial_step_f64(const double* z, const double* zmax, const double* qx,
@@ -510,12 +527,12 @@ int inertial_step_f64(const double* z, const double* zmax, const double* qx,
                       double* z_out, double* zmax_out, double* qx_out,
                       double* qy_out, double* speeds, const double* dt,
                       int rows, int cols, int chunk, int grid_x, int grid_y,
-                      double dx, double dy, double vs, double qs,
-                      int simplified, void* stream) {
+                      MESH_WINDOW_ARGS, double dx, double dy, double vs,
+                      double qs, int simplified, void* stream) {
   return launch_inertial<double, false>(
       z, zmax, qx, qy, zb, n, nullptr, z_out, zmax_out, qx_out, qy_out,
-      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, dx, dy, vs, qs,
-      simplified, stream);
+      nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y, MESH_WINDOW,
+      dx, dy, vs, qs, simplified, stream);
 }
 
 }  // extern "C"

@@ -18,6 +18,19 @@ takes ``mask``: a boolean tensor that is True exactly where forcing is
 allowed, the grid minus the scheme's static ring
 (``interior_force_mask``), built once per simulation.  No ``apply``
 reads anything back to the host: time indices stay on the device.
+
+On a device mesh each block of the halo-deep window
+(``parallel/halo_deep.py``) holds its own copy of every boundary, placed
+by ``to(device, dtype, domain, origin=(oy, ox), shape=(er, ec))``: the
+block's halo-extended array is ``shape`` cells whose [0, 0] is the global
+cell ``origin``, so position-dependent forcing (gridded georeferencing,
+cell indices) evaluates in global coordinates, as the reference builds a
+per-domain transform (src/Boundaries/CBoundaryGridded.cpp:116-153) and
+scatters cell boundaries with domain-local indices
+(src/Boundaries/CBoundaryCell.cpp:447-451).  Halo copies of a forced cell
+get the same forcing as their owner; the block's ``mask`` is the
+complement of the logical ring in global coordinates, so every path
+forces the same cells.
 """
 
 from __future__ import annotations
@@ -35,14 +48,18 @@ from .godunov import SchemeParams
 MM_PER_HOUR_TO_M_PER_S = 1.0 / 3_600_000.0
 
 
-def interior_force_mask(shape, ring, device):
-    """True where boundary forcing is allowed: more than ``ring`` cells
-    from the grid's edge (the scheme's static ring is never updated, so
-    forcing it would create path-dependent state)."""
+def interior_force_mask(shape, ring, device, origin=(0, 0), logical=None):
+    """True where boundary forcing is allowed: inside the logical grid
+    (``logical`` rows, cols; the array itself by default), more than
+    ``ring`` cells from its edge (the scheme's static ring is never
+    updated, so forcing it would create path-dependent state).  The
+    array's [0, 0] is the global cell ``origin``."""
     rows, cols = shape
-    mask = torch.zeros((rows, cols), dtype=torch.bool, device=device)
-    mask[ring:rows - ring, ring:cols - ring] = True
-    return mask
+    lr, lc = (rows, cols) if logical is None else logical
+    gy = torch.arange(rows, device=device)[:, None] + origin[0]
+    gx = torch.arange(cols, device=device)[None, :] + origin[1]
+    return ((gy >= ring) & (gy < lr - ring)
+            & (gx >= ring) & (gx < lc - ring))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +74,8 @@ class UniformBoundary:
     length: float
     is_loss: bool
 
-    def to(self, device, dtype, domain=None) -> "UniformBoundary":
+    def to(self, device, dtype, domain=None, origin=(0, 0),
+           shape=None) -> "UniformBoundary":
         return dataclasses.replace(self, values=torch.as_tensor(
             np.asarray(self.values), device=device).to(dtype))
 
@@ -110,11 +128,12 @@ class GriddedBoundary:
     src/Boundaries/CLBoundaries.clc:229-230).
 
     ``to`` puts the frames on the device flattened and builds
-    ``cell_index``: for every domain cell, the flat index of its grid cell
-    within a frame, floor(((ox + j) dx - offset_x) / resolution) clipped
-    to the grid (and the same in y), computed once on the host in float64.
-    ``origin`` = (row0, col0) is the global index of the array's [0, 0]
-    cell; it stays (0, 0) on one device."""
+    ``cell_index``: for every cell of the array, the flat index of its grid
+    cell within a frame, floor(((ox + j) dx - offset_x) / resolution)
+    clipped to the grid (and the same in y), computed once on the host in
+    float64.  The array is the domain on one device; a mesh block passes
+    its extended ``shape`` and ``origin`` = (row0, col0), the global index
+    of its [0, 0] cell."""
 
     series: object                  # (T, grid_rows, grid_cols)
     interval: float
@@ -123,19 +142,20 @@ class GriddedBoundary:
     offset_y: float
     mass_flux: bool
     length: float = float("inf")
-    origin: tuple = (0, 0)
     cell_index: object = None       # (rows * cols,) int64, built by to()
 
-    def to(self, device, dtype, domain=None) -> "GriddedBoundary":
+    def to(self, device, dtype, domain=None, origin=(0, 0),
+           shape=None) -> "GriddedBoundary":
         if domain is None:
             raise ValueError("GriddedBoundary.to needs the domain: its "
                              "cells are mapped onto the boundary grid once")
         series = np.asarray(self.series)
         _, grows, gcols = series.shape
-        oy, ox = self.origin
-        xi = (((ox + np.arange(domain.cols)) * float(domain.dx)
+        oy, ox = origin
+        rows, cols = (domain.rows, domain.cols) if shape is None else shape
+        xi = (((ox + np.arange(cols)) * float(domain.dx)
                - self.offset_x) / self.resolution)
-        yi = (((oy + np.arange(domain.rows)) * float(domain.dy)
+        yi = (((oy + np.arange(rows)) * float(domain.dy)
                - self.offset_y) / self.resolution)
         ci = np.clip(np.floor(xi).astype(np.int64), 0, gcols - 1)
         ri = np.clip(np.floor(yi).astype(np.int64), 0, grows - 1)
@@ -198,7 +218,10 @@ class CellBoundary:
     by the loader, as the reference does host-side
     (src/Boundaries/CBoundaryCell.cpp:345-355).  ``rows``, ``cols`` and
     ``series`` are host arrays until ``to`` puts them on the state's
-    device (``Simulation`` does so once)."""
+    device (``Simulation`` does so once).  A mesh block's ``to`` (its
+    extended ``shape`` and ``origin``) keeps the target cells inside the
+    block, shifted to its indices: the others are dropped, as the JAX
+    package's drop-mode scatter drops them."""
 
     rows: object                    # (K,) int cell row indices
     cols: object                    # (K,) int cell col indices
@@ -208,11 +231,19 @@ class CellBoundary:
     depth_mode: int
     discharge_mode: int
 
-    def to(self, device, dtype, domain=None) -> "CellBoundary":
+    def to(self, device, dtype, domain=None, origin=(0, 0),
+           shape=None) -> "CellBoundary":
+        rows = np.asarray(self.rows, np.int64) - origin[0]
+        cols = np.asarray(self.cols, np.int64) - origin[1]
+        if shape is not None:
+            inside = ((rows >= 0) & (rows < shape[0])
+                      & (cols >= 0) & (cols < shape[1]))
+            rows, cols = rows[inside], cols[inside]
+
         def idx(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+            return torch.as_tensor(a, device=device)
         return dataclasses.replace(
-            self, rows=idx(self.rows), cols=idx(self.cols),
+            self, rows=idx(rows), cols=idx(cols),
             series=torch.as_tensor(np.asarray(self.series),
                                    device=device).to(dtype))
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ...state import FlowState
+from ..boundaries import interior_force_mask
 from ..timestep import max_wave_speed
 
 
@@ -75,11 +76,48 @@ def launch_step(lib, name, who, inputs, state, comp, dt, n_partials, args):
     return new, torch.amax(speeds), comp_out
 
 
-def plain_step_result(out, comp, static, params, simplified_speed):
+def mesh_window(shape, origin=None, logical=None, speed_window=None):
+    """The kernels' MeshWindow (``csrc/march.cuh``) as 8 ints, and the
+    check of the three mesh options of a step: ``origin`` (oy, ox), the
+    global index of the array's [0, 0] cell; ``logical`` (rows, cols), the
+    logical grid whose static ring is frozen in global coordinates; and
+    ``speed_window`` (r0, nr, c0, nc), the array's owned cells, the only
+    ones that feed the CFL max.  None is the one-device default: the array
+    is the logical grid and owns every cell."""
+    rows, cols = shape
+    oy, ox = (0, 0) if origin is None else (int(v) for v in origin)
+    lr, lc = (rows, cols) if logical is None else (int(v) for v in logical)
+    r0, nr, c0, nc = ((0, rows, 0, cols) if speed_window is None
+                      else (int(v) for v in speed_window))
+    if not (0 <= r0 and nr >= 1 and r0 + nr <= rows
+            and 0 <= c0 and nc >= 1 and c0 + nc <= cols):
+        raise ValueError(f"speed_window {(r0, nr, c0, nc)} is not a "
+                         f"non-empty window of the {rows}x{cols} array")
+    return oy, ox, lr, lc, r0, nr, c0, nc
+
+
+def plain_step_result(state, out, comp, static, params, simplified_speed,
+                      radius=1, origin=None, logical=None,
+                      speed_window=None):
     """What a fused step kernel returns, from its plain version's
-    whole-grid step ``out`` (a FlowState, or (FlowState, comp_new) when
-    ``comp`` is given): (new_state, max_wave_speed[, comp_new])."""
+    whole-grid step ``out`` of ``state`` (a FlowState, or (FlowState,
+    comp_new) when ``comp`` is given): (new_state, max_wave_speed[,
+    comp_new]).  With the mesh options (``mesh_window``) the cells on the
+    logical ring of width ``radius`` keep their old values, comp included,
+    and the max covers the owned cells only, as ``parallel/halo_deep.py``
+    of the JAX package does around its XLA step."""
     new, comp_new = (out, None) if comp is None else out
-    speed = max_wave_speed(new.z, new.zmax, new.qx, new.qy, static.zb,
-                           params.quite_small, simplified_speed)
+    window = mesh_window(state.z.shape, origin, logical, speed_window)
+    if origin is not None or logical is not None:
+        ring = ~interior_force_mask(state.z.shape, radius, state.z.device,
+                                    window[:2], window[2:4])
+        new = FlowState(*(torch.where(ring, o, v) for o, v in zip(state,
+                                                                   new)))
+        if comp is not None:
+            comp_new = torch.where(ring, comp, comp_new)
+    r0, nr, c0, nc = window[4:]
+    own = (slice(r0, r0 + nr), slice(c0, c0 + nc))
+    speed = max_wave_speed(new.z[own], new.zmax[own], new.qx[own],
+                           new.qy[own], static.zb[own], params.quite_small,
+                           simplified_speed)
     return (new, speed) if comp is None else (new, speed, comp_new)

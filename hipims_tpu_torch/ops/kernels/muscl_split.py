@@ -25,6 +25,14 @@ The predictor's planes form one (12 or 4, rows, cols) tensor: base
 (z, h, qx, qy), then sx(z, h, qx, qy) and sy(z, h, qx, qy).  Cells of the
 one-cell edge ring hold the first-order placeholder (z, z - zb, qx, qy)
 and zero slopes.
+
+On a mesh block (``parallel/halo_deep.py``) the correctors K3 and K5a-C
+take the mesh options ``origin``, ``logical`` and ``speed_window``
+(``common.mesh_window``): the logical grid's two-cell ring is frozen in
+global coordinates, beside the array's own, and the CFL max covers the
+owned cells.  The predictors take none, as in the JAX package: they run
+unchanged on the extended block, and the rebuilt slopes' edge test stays
+on the array's own ring.
 """
 
 from __future__ import annotations
@@ -39,9 +47,8 @@ from ..godunov import SchemeParams
 from ..muscl import (FaceExtrap, faces_from_base_slopes, interior_slopes,
                      muscl_corrector_full, muscl_predictor_base_slopes,
                      muscl_step, with_ring)
-from ..timestep import max_wave_speed
 from . import build
-from .common import (check_planes, launch_step, on_card,
+from .common import (check_planes, launch_step, mesh_window, on_card,
                      plain_step_result, raise_on)
 from .geometry import march_geometry
 
@@ -60,8 +67,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
-_CORRECT_F32_ARGS = [_P] * 15 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
-_CORRECT_F64_ARGS = [_P] * 13 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F32_ARGS = [_P] * 15 + [_I] * 13 + [_D] * 4 + [_I, _I, _P]
+_CORRECT_F64_ARGS = [_P] * 13 + [_I] * 13 + [_D] * 4 + [_I, _I, _P]
 _FUSED_F32_ARGS = [_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _P]
 _FUSED_F64_ARGS = [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _P]
 
@@ -117,12 +124,13 @@ def _slope_planes(state: FlowState, static, vs):
 
 
 def muscl_correct_plain(state: FlowState, static, pred, dt,
-                        params: SchemeParams, comp=None):
+                        params: SchemeParams, comp=None, origin=None,
+                        logical=None, speed_window=None):
     """The plain version of K3 (12 predictor planes) and K5a-C (4 base
     planes; the slopes are rebuilt from the state): the corrector, the
-    two-cell static ring, and the max wave speed over the new state.
-    Returns (new_state, speed) or, with ``comp``, (new_state, speed,
-    comp_new)."""
+    two-cell static ring, and the max wave speed over the new state (with
+    the mesh options, ``common.plain_step_result``).  Returns
+    (new_state, speed) or, with ``comp``, (new_state, speed, comp_new)."""
     slopes = (pred[4:] if pred.shape[0] == N_PRED
               else _slope_planes(state, static, params.very_small))
     faces = faces_from_base_slopes(FaceExtrap(*pred[:4]), slopes[:4],
@@ -130,20 +138,19 @@ def muscl_correct_plain(state: FlowState, static, pred, dt,
     out = muscl_corrector_full(*state, *static, faces, dt, params, comp=comp)
     new = FlowState(*(with_ring(a, o[1:-1, 1:-1], RING)
                       for a, o in zip(state, out[:4])))
-    speed = max_wave_speed(new.z, new.zmax, new.qx, new.qy, static.zb,
-                           params.quite_small)
-    if comp is None:
-        return new, speed
-    return new, speed, with_ring(comp, out[4][1:-1, 1:-1], RING)
+    if comp is not None:
+        new = (new, with_ring(comp, out[4][1:-1, 1:-1], RING))
+    return plain_step_result(state, new, comp, static, params, False, RING,
+                             origin, logical, speed_window)
 
 
 def muscl_step_plain(state: FlowState, static, dt, params: SchemeParams,
                      comp=None, simplified_speed=False):
     """The plain version of K5b, on any device: the whole-grid MUSCL-
     Hancock step, then the max wave speed over the new state."""
-    return plain_step_result(muscl_step(state, static, dt, params,
-                                        comp=comp),
-                             comp, static, params, simplified_speed)
+    return plain_step_result(state, muscl_step(state, static, dt, params,
+                                               comp=comp),
+                             comp, static, params, simplified_speed, RING)
 
 
 # ---------------------------------------------------------------------------
@@ -190,18 +197,20 @@ def _spacing(params):
 
 
 def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
-                  chunk=None):
+                  window=None, chunk=None):
     """Launch the row-marching corrector, K3 (``slopes`` LOADED, K2's 12
-    planes) or K5a-C (REBUILT, K5a-P's 4 base planes), on the geometry of
-    its grid and halo, ``chunk`` rows per block unless
+    planes) or K5a-C (REBUILT, K5a-P's 4 base planes), with the mesh
+    ``window`` (``common.mesh_window``; None: the whole grid) on the
+    geometry of its grid and halo, ``chunk`` rows per block unless
     ``geometry.march_geometry`` picks them."""
     who = "muscl_correct" if slopes == LOADED else "muscl_correct_recompute"
     inputs = _check_step(who, state, static, pred, CORRECTOR_PLANES[slopes],
                          dt, comp)
     geom = march_geometry(*state.z.shape, chunk=chunk,
                           halo=CORRECTOR_HALO[slopes])
+    window = window or mesh_window(state.z.shape)
     return launch_step(_lib(), "muscl_correct", who, inputs, state, comp, dt,
-                       geom.partials, (*state.z.shape, *geom.args(),
+                       geom.partials, (*state.z.shape, *geom.args(), *window,
                                        *_spacing(params), slopes))
 
 
@@ -240,26 +249,30 @@ def muscl_predict_base(state: FlowState, static, dt, params: SchemeParams):
 
 
 def muscl_correct(state: FlowState, static, pred, dt, params: SchemeParams,
-                  comp=None):
+                  comp=None, origin=None, logical=None, speed_window=None):
     """K3: the corrector on K2's 12 planes, the two-cell static ring and
     the CFL max.  Returns as ``muscl_correct_plain``."""
     if not on_card("muscl_correct", state):
-        return muscl_correct_plain(state, static, pred, dt, params,
-                                   comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp)
+        return muscl_correct_plain(state, static, pred, dt, params, comp,
+                                   origin, logical, speed_window)
+    out = _correct_cuda(state, static, pred, dt, params, comp, LOADED,
+                        mesh_window(state.z.shape, origin, logical,
+                                    speed_window))
     muscl_correct.launches += 1
     return out
 
 
 def muscl_correct_recompute(state: FlowState, static, pred, dt,
-                            params: SchemeParams, comp=None):
+                            params: SchemeParams, comp=None, origin=None,
+                            logical=None, speed_window=None):
     """K5a-C: the corrector on K5a-P's 4 base planes, rebuilding the
     limited slopes from the state.  Returns as ``muscl_correct_plain``."""
     if not on_card("muscl_correct_recompute", state):
-        return muscl_correct_plain(state, static, pred, dt, params,
-                                   comp=comp)
-    out = _correct_cuda(state, static, pred, dt, params, comp,
-                        slopes=REBUILT)
+        return muscl_correct_plain(state, static, pred, dt, params, comp,
+                                   origin, logical, speed_window)
+    out = _correct_cuda(state, static, pred, dt, params, comp, REBUILT,
+                        mesh_window(state.z.shape, origin, logical,
+                                    speed_window))
     muscl_correct_recompute.launches += 1
     return out
 
@@ -288,7 +301,8 @@ for _k in (*KERNELS, muscl_fused):
 
 
 def muscl_step_split(state: FlowState, static, dt, params: SchemeParams,
-                     variant=None, comp=None):
+                     variant=None, comp=None, origin=None, logical=None,
+                     speed_window=None):
     """One MUSCL-Hancock step as predictor + corrector, and its CFL max.
 
     Returns (new_state, max_wave_speed), plus the updated compensation
@@ -296,13 +310,16 @@ def muscl_step_split(state: FlowState, static, dt, params: SchemeParams,
     the corrector touches it.  ``variant`` picks the kernel pair:
     "split12" (the default, as in the JAX package) or "recompute".  ``dt``
     is a 0-d tensor on the state's device; the two-cell edge ring keeps
-    its values."""
+    its values.  The mesh options (``stencil.stencil_step``) go to the
+    corrector of either variant."""
     variant = "split12" if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"unknown MUSCL split variant '{variant}'")
     if variant == "split12":
         pred = muscl_predict(state, static, dt, params)
-        return muscl_correct(state, static, pred, dt, params, comp=comp)
-    pred = muscl_predict_base(state, static, dt, params)
-    return muscl_correct_recompute(state, static, pred, dt, params,
-                                   comp=comp)
+        correct = muscl_correct
+    else:
+        pred = muscl_predict_base(state, static, dt, params)
+        correct = muscl_correct_recompute
+    return correct(state, static, pred, dt, params, comp, origin, logical,
+                   speed_window)

@@ -15,6 +15,12 @@ count and its own plain PyTorch version:
 On CPU tensors a wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.  There is no fallback from the card to the
 plain version.
+
+K1 and K4 also take the mesh options of a halo-extended block
+(``parallel/halo_deep.py``): ``origin``, ``logical`` and ``speed_window``
+(``common.mesh_window``), as the TPU kernel takes ``origin`` and
+``speed_window``.  K5b runs on no mesh path, in either package, and takes
+the one-device defaults only.
 """
 
 from __future__ import annotations
@@ -26,20 +32,22 @@ from ...state import FlowState
 from ..godunov import SchemeParams, godunov_step
 from ..inertial import inertial_step
 from . import build
-from .common import check_planes, launch_step, on_card, plain_step_result
+from .common import (check_planes, launch_step, mesh_window, on_card,
+                     plain_step_result)
 from .geometry import march_geometry
 from .muscl_split import muscl_fused, muscl_step_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# (f32, f64) signatures: both take the march geometry (chunk, grid); K1
-# also takes friction, which is part of K4's scheme.
+# (f32, f64) signatures: both take the grid, the march geometry (chunk,
+# grid) and the mesh window's 8 ints; K1 also takes friction, which is
+# part of K4's scheme.
 _ARGS = {
-    "godunov": ([_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _I, _P],
-                [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _I, _P]),
-    "inertial": ([_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _P],
-                 [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _P]),
+    "godunov": ([_P] * 14 + [_I] * 13 + [_D] * 4 + [_I, _I, _P],
+                [_P] * 12 + [_I] * 13 + [_D] * 4 + [_I, _I, _P]),
+    "inertial": ([_P] * 14 + [_I] * 13 + [_D] * 4 + [_I, _P],
+                 [_P] * 12 + [_I] * 13 + [_D] * 4 + [_I, _P]),
 }
 
 
@@ -62,13 +70,16 @@ def _planes(state, static, comp):
 
 
 def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
-                  chunk=None):
-    """Launch K1 on the row-marching geometry of its grid, ``chunk`` rows
-    per block unless ``geometry.march_geometry`` picks them."""
+                  window=None, chunk=None):
+    """Launch K1 with the mesh ``window`` (``common.mesh_window``; None:
+    the whole grid) on the row-marching geometry of its grid, ``chunk``
+    rows per block unless ``geometry.march_geometry`` picks them."""
     check_planes("godunov step", _planes(state, static, comp), dt, comp)
     geom = march_geometry(*state.z.shape, chunk=chunk)
+    window = window or mesh_window(state.z.shape)
     # K1 multiplies by the inverse spacings.
-    args = (*state.z.shape, *geom.args(), 1.0 / params.dx, 1.0 / params.dy,
+    args = (*state.z.shape, *geom.args(), *window, 1.0 / params.dx,
+            1.0 / params.dy,
             params.very_small, params.quite_small, int(params.friction),
             int(simplified_speed))
     return launch_step(_lib(), "godunov_step", "godunov step",
@@ -77,13 +88,15 @@ def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
 
 
 def _inertial_cuda(state, static, dt, params, comp, simplified_speed,
-                   chunk=None):
-    """Launch K4 on the row-marching geometry of its grid, as K1."""
+                   window=None, chunk=None):
+    """Launch K4 with the mesh ``window`` on the row-marching geometry of
+    its grid, as K1."""
     check_planes("inertial step", _planes(state, static, comp), dt, comp)
     geom = march_geometry(*state.z.shape, chunk=chunk)
+    window = window or mesh_window(state.z.shape)
     # K4 divides by the spacings, as the reference's inertial scheme does;
     # its friction is part of the scheme.
-    args = (*state.z.shape, *geom.args(), params.dx, params.dy,
+    args = (*state.z.shape, *geom.args(), *window, params.dx, params.dy,
             params.very_small, params.quite_small, int(simplified_speed))
     return launch_step(_lib(), "inertial_step", "inertial step",
                        [t.data_ptr() for t in (*state, *static)], state,
@@ -91,41 +104,55 @@ def _inertial_cuda(state, static, dt, params, comp, simplified_speed,
 
 
 def stencil_step_plain(state: FlowState, static, dt, params: SchemeParams,
-                       comp=None, simplified_speed=False):
+                       comp=None, simplified_speed=False, origin=None,
+                       logical=None, speed_window=None):
     """The plain PyTorch version of K1, on any device: the whole-grid
-    Godunov step, then the max wave speed over the new state."""
-    return plain_step_result(godunov_step(state, static, dt, params,
-                                          comp=comp),
-                             comp, static, params, simplified_speed)
+    Godunov step, then the max wave speed over the new state (with the
+    mesh options, ``common.plain_step_result``)."""
+    return plain_step_result(state, godunov_step(state, static, dt, params,
+                                                 comp=comp),
+                             comp, static, params, simplified_speed, 1,
+                             origin, logical, speed_window)
 
 
 def inertial_step_plain(state: FlowState, static, dt, params: SchemeParams,
-                        comp=None, simplified_speed=True):
+                        comp=None, simplified_speed=True, origin=None,
+                        logical=None, speed_window=None):
     """The plain PyTorch version of K4, on any device: the whole-grid
-    partial-inertial step, then the max wave speed over the new state."""
-    return plain_step_result(inertial_step(state, static, dt, params,
-                                           comp=comp),
-                             comp, static, params, simplified_speed)
+    partial-inertial step, then the max wave speed over the new state
+    (with the mesh options, ``common.plain_step_result``)."""
+    return plain_step_result(state, inertial_step(state, static, dt, params,
+                                                  comp=comp),
+                             comp, static, params, simplified_speed, 1,
+                             origin, logical, speed_window)
 
 
 def godunov_fused(state: FlowState, static, dt, params: SchemeParams,
-                  comp=None, simplified_speed=False):
+                  comp=None, simplified_speed=False, origin=None,
+                  logical=None, speed_window=None):
     """K1: one first-order Godunov step + CFL max."""
     if not on_card("godunov_fused", state):
-        return stencil_step_plain(state, static, dt, params, comp=comp,
-                                  simplified_speed=simplified_speed)
-    out = _godunov_cuda(state, static, dt, params, comp, simplified_speed)
+        return stencil_step_plain(state, static, dt, params, comp,
+                                  simplified_speed, origin, logical,
+                                  speed_window)
+    out = _godunov_cuda(state, static, dt, params, comp, simplified_speed,
+                        mesh_window(state.z.shape, origin, logical,
+                                    speed_window))
     godunov_fused.launches += 1
     return out
 
 
 def inertial_fused(state: FlowState, static, dt, params: SchemeParams,
-                   comp=None, simplified_speed=True):
+                   comp=None, simplified_speed=True, origin=None,
+                   logical=None, speed_window=None):
     """K4: one partial-inertial step + CFL max."""
     if not on_card("inertial_fused", state):
-        return inertial_step_plain(state, static, dt, params, comp=comp,
-                                   simplified_speed=simplified_speed)
-    out = _inertial_cuda(state, static, dt, params, comp, simplified_speed)
+        return inertial_step_plain(state, static, dt, params, comp,
+                                   simplified_speed, origin, logical,
+                                   speed_window)
+    out = _inertial_cuda(state, static, dt, params, comp, simplified_speed,
+                         mesh_window(state.z.shape, origin, logical,
+                                     speed_window))
     inertial_fused.launches += 1
     return out
 
@@ -141,17 +168,29 @@ PLAIN = {"godunov": stencil_step_plain, "inertial": inertial_step_plain,
 
 
 def stencil_step(scheme: str, state: FlowState, static, dt,
-                 params: SchemeParams, comp=None, simplified_speed=False):
+                 params: SchemeParams, comp=None, simplified_speed=False,
+                 origin=None, logical=None, speed_window=None):
     """One fused step + CFL reduction of ``scheme``.
 
     Returns (new_state, max_wave_speed), or (new_state, max_wave_speed,
     comp_new) when ``comp`` (the compensated-f32 residue of z) is given.
     ``dt`` is a 0-d tensor on the state's device.  The scheme's static
     edge ring (one cell, two for MUSCL-Hancock) keeps its values; the max
-    speed covers every cell of the new state.  CUDA tensors launch the
-    scheme's kernel (K1, K4 or K5b); CPU tensors take its plain version."""
+    speed covers every cell of the new state.  On a mesh block, ``origin``
+    (the global index of the array's [0, 0]), ``logical`` (the logical
+    grid's rows, cols) and ``speed_window`` (r0, nr, c0, nc: the owned
+    cells) also freeze the logical grid's ring in global coordinates and
+    restrict the max to the owned cells (``common.mesh_window``); K5b
+    takes none of them.  CUDA tensors launch the scheme's kernel (K1, K4
+    or K5b); CPU tensors take its plain version."""
     if scheme not in _BY_SCHEME:
         raise ValueError(f"stencil_step: unknown scheme {scheme!r}; "
                          f"expected one of {sorted(_BY_SCHEME)}")
+    mesh = dict(origin=origin, logical=logical, speed_window=speed_window)
+    if scheme == "muscl-hancock":
+        if any(v is not None for v in mesh.values()):
+            raise ValueError("stencil_step: the whole MUSCL step (K5b) runs "
+                             "on no mesh path; use muscl_step_split")
+        mesh = {}
     return _BY_SCHEME[scheme](state, static, dt, params, comp=comp,
-                              simplified_speed=simplified_speed)
+                              simplified_speed=simplified_speed, **mesh)

@@ -1,0 +1,354 @@
+"""Halo-deep stepping over a mesh of blocks ("forecast" sync).
+
+The reference's novel multi-domain mode lets each domain free-run several
+iterations between halo exchanges, bounded by the halo depth ("rollback
+limit" = overlap - 1; reference: src/Domain/CDomainBase.cpp:163-174,
+CSchemeGodunov.cpp:1273-1305).  The JAX package runs it as a
+``shard_map`` window (``hipims_tpu/parallel/halo_deep.py``); here the same
+window runs in one process over ``HaloDeepBlocks``:
+
+  1. every block of the mesh holds its share of the grid halo-EXTENDED by
+     ``halo_pads`` cells a side, in a zero frame where the block meets the
+     grid's edge; the static fields' halos are filled once;
+  2. at the top of every exchange window the state's (and comp's) halo
+     strips are copied from the neighbours' owned cells, rows full-width
+     first and then columns full-height, so the corners arrive in two
+     hops; every neighbour's values are taken before any block steps;
+  3. the window runs ``window`` steps (1 under ``sync_method="timestep"``):
+     each step applies the boundaries on the extended block (``mask`` =
+     off the logical ring in global coordinates) and runs the scheme's
+     fused step with the block's ``origin``, the logical grid and its
+     owned-cell ``speed_window`` (on the card K1, K4, or K2/K5a-P + K3/K5a-C;
+     on the CPU their plain versions).  Each step invalidates one more
+     halo ring, so the owned cells stay exact;
+  4. the time controller runs as in the reference, in one of two modes:
+     lock-step (one global max over the blocks' owned-cell speeds per step:
+     the analogue of MPI_Allreduce(MIN), src/MPI/CMPIManager.cpp:837-889),
+     or, with ``forecast_dt="window"`` and a window above 1 under a CFL
+     timestep, a frozen speed times ``dt_safety`` for the whole window, one
+     max per window, and a re-run from the window's saved start when the
+     observed speed breaks the margin (at most 4 re-runs, after which the
+     window is accepted as the JAX package accepts it; ``reruns`` counts
+     them).
+
+The blocks stay extended between batches: the state never passes through
+one full-grid tensor on the way.  Re-extending it at each batch, as the
+JAX package does because its sharded arrays hold no halos, would give the
+same values, since every halo cell inside the grid is refreshed at the top
+of each window and every one outside it is a zero of the frame.  What
+differs from the JAX package by design: the pads are ``window * radius +
+1`` with no rounding (its Pallas branch rounds them to 64 for the TPU's
+DMA alignment, which the CUDA kernels do not have), blocks may differ by a
+row or a column (``mesh.block_spans``), and where not even a window of one
+step fits a block, ``Simulation`` raises where the JAX package falls back
+to per-step GSPMD halos (ROADMAP.md section 3).
+
+Host reads: lock-step reads nothing; window mode reads one 0-d tensor per
+window, the ``violated`` predicate (and one more per re-run), as the
+JAX package's ``while_loop`` reads it on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from ..ops.boundaries import apply_boundaries, interior_force_mask
+from ..ops.kernels.muscl_split import muscl_step_split
+from ..ops.kernels.stencil import stencil_step
+from ..ops.timestep import advance, max_wave_speed
+from ..state import DomainStatic, FlowState, StepCarry
+from .mesh import Mesh, block_geometry
+
+# Re-runs of one window before it is accepted as it stands
+# (hipims_tpu/parallel/halo_deep.py:334-362).
+MAX_RERUNS = 4
+
+
+def halo_pads(window: int, radius: int):
+    """(pad_r, pad_c) halo depths for one exchange window: the cells a
+    window of ``window`` steps invalidates, ``window * radius``, plus one,
+    since the outermost extended ring never updates.  The JAX package's
+    Pallas branch rounds these up for the TPU's DMA alignment; the CUDA
+    kernels take any shape, so the port keeps its XLA branch's pads."""
+    need = window * radius + 1
+    return need, need
+
+
+def extend(full, own, pads, device):
+    """The block ``own`` = (r0, nr, c0, nc) of the full-grid plane
+    ``full``, extended by ``pads`` cells a side on ``device``: cells
+    inside the grid take the grid's values, cells outside it are 0 (the
+    JAX package's zero frame; they lie on the logical ring, so every step
+    freezes them, and outside the owned window, so no CFL max sees
+    them)."""
+    rows, cols = full.shape
+    r0, nr, c0, nc = own
+    pr, pc = pads
+    out = torch.zeros((nr + 2 * pr, nc + 2 * pc), dtype=full.dtype,
+                      device=device)
+    y0, y1 = max(r0 - pr, 0), min(r0 + nr + pr, rows)
+    x0, x1 = max(c0 - pc, 0), min(c0 + nc + pc, cols)
+    oy, ox = r0 - pr, c0 - pc
+    out[y0 - oy:y1 - oy, x0 - ox:x1 - ox].copy_(full[y0:y1, x0:x1])
+    return out
+
+
+@dataclasses.dataclass
+class Block:
+    """One block of the mesh: where it lies, and its extended planes."""
+
+    index: tuple                    # (iy, ix) in the mesh
+    device: torch.device
+    own: tuple                      # (r0, nr, c0, nc) of the logical grid
+    origin: tuple                   # global index of the extended [0, 0]
+    speed_window: tuple             # the owned cells in the extended array
+    static: DomainStatic
+    boundaries: tuple
+    force_mask: torch.Tensor
+    state: FlowState = None
+    comp: torch.Tensor = None
+
+    @property
+    def interior(self):
+        r0, nr, c0, nc = self.speed_window
+        return slice(r0, r0 + nr), slice(c0, c0 + nc)
+
+
+def _max_on(values, device):
+    """The max of 0-d tensors, on ``device`` (NaN propagates)."""
+    out = None
+    for v in values:
+        v = v.to(device)
+        out = v if out is None else torch.maximum(out, v)
+    return out
+
+
+def _carry_on(carry: StepCarry, device) -> StepCarry:
+    """``carry`` on ``device`` (itself when it is there already)."""
+    if carry.t.device == device:
+        return carry
+    return StepCarry(*(v.to(device) for v in carry))
+
+
+class HaloDeepBlocks:
+    """The blocks of a mesh run and their halo-deep window (module
+    docstring).  ``run_batch`` advances the carry, which lives on the
+    first block's device, by ``n_windows`` windows."""
+
+    def __init__(self, mesh: Mesh, scheme, params, ts_params,
+                 boundaries: Sequence, domain, state: FlowState,
+                 static: DomainStatic, comp, window: int, end_time: float,
+                 muscl_variant=None, dt_mode: str = "window",
+                 dt_safety: float = 1.05):
+        self.mesh = mesh
+        self.scheme = scheme
+        self.params = params
+        self.ts_params = ts_params
+        self.window = window
+        self.end_time = end_time
+        self.muscl_variant = muscl_variant
+        self.dt_safety = dt_safety
+        self.logical = (domain.rows, domain.cols)
+        self.pads = halo_pads(window, scheme.radius)
+        # Fixed dt opts out of the CFL law: its windows run lock-step, as
+        # the JAX package's (hipims_tpu/parallel/halo_deep.py:293-298).
+        self.amortise = (dt_mode == "window" and window > 1
+                         and ts_params.dynamic)
+        self.reruns = 0
+        pr, pc = self.pads
+        self.blocks = []
+        for (iy, ix), own in sorted(block_geometry(*self.logical,
+                                                   mesh.shape).items()):
+            dev = mesh.devices[iy, ix]
+            r0, nr, c0, nc = own
+            shape = (nr + 2 * pr, nc + 2 * pc)
+            origin = (r0 - pr, c0 - pc)
+            self.blocks.append(Block(
+                index=(iy, ix), device=dev, own=own, origin=origin,
+                speed_window=(pr, nr, pc, nc),
+                static=DomainStatic(*(extend(a, own, self.pads, dev)
+                                      for a in static)),
+                boundaries=tuple(b.to(dev, state.z.dtype, domain,
+                                      origin=origin, shape=shape)
+                                 for b in boundaries),
+                force_mask=interior_force_mask(shape, scheme.radius, dev,
+                                               origin, self.logical)))
+        self.load_state(state)
+        self.load_comp(comp)
+
+    # ------------------------------------------------------------------
+    # The full grid in and out.
+    def load_state(self, state: FlowState):
+        """Scatter a full-grid state into the blocks (and their halos)."""
+        for b in self.blocks:
+            b.state = FlowState(*(extend(a, b.own, self.pads, b.device)
+                                  for a in state))
+
+    def load_comp(self, comp):
+        """Scatter a full-grid comp plane (or None) into the blocks."""
+        for b in self.blocks:
+            b.comp = (None if comp is None
+                      else extend(comp, b.own, self.pads, b.device))
+
+    def _assemble(self, planes):
+        """One full-grid tensor on the first block's device from the
+        blocks' owned cells of ``planes`` (one plane per block)."""
+        first = self.blocks[0]
+        out = torch.empty(self.logical, dtype=planes[0].dtype,
+                          device=first.device)
+        for b, a in zip(self.blocks, planes):
+            r0, nr, c0, nc = b.own
+            out[r0:r0 + nr, c0:c0 + nc].copy_(a[b.interior])
+        return out
+
+    def state(self) -> FlowState:
+        return FlowState(*(self._assemble([b.state[k] for b in self.blocks])
+                           for k in range(4)))
+
+    def static(self) -> DomainStatic:
+        return DomainStatic(*(self._assemble([b.static[k]
+                                              for b in self.blocks])
+                              for k in range(2)))
+
+    def comp(self):
+        if self.blocks[0].comp is None:
+            return None
+        return self._assemble([b.comp for b in self.blocks])
+
+    # ------------------------------------------------------------------
+    # The exchange.
+    def _refresh(self, planes):
+        """Refresh the halo strips of ``planes`` (one extended plane per
+        block, in self.blocks' order) in place from the neighbours'
+        owned cells: rows full-width first, then columns full-height,
+        which carries the corners in two hops.  Every strip read is owned
+        cells and every strip written is halo, so the order of the
+        copies within a pass does not matter."""
+        py, px = self.mesh.shape
+        pr, pc = self.pads
+        grid = {b.index: a for b, a in zip(self.blocks, planes)}
+        for iy in range(py - 1):
+            for ix in range(px):
+                lo, hi = grid[iy, ix], grid[iy + 1, ix]
+                n = lo.shape[0] - 2 * pr
+                hi[:pr].copy_(lo[n:n + pr])
+                lo[n + pr:].copy_(hi[pr:2 * pr])
+        for ix in range(px - 1):
+            for iy in range(py):
+                lo, hi = grid[iy, ix], grid[iy, ix + 1]
+                n = lo.shape[1] - 2 * pc
+                hi[:, :pc].copy_(lo[:, n:n + pc])
+                lo[:, n + pc:].copy_(hi[:, pc:2 * pc])
+
+    def _refresh_all(self, states, comps):
+        for k in range(4):
+            self._refresh([st[k] for st in states])
+        if comps[0] is not None:
+            self._refresh(comps)
+
+    # ------------------------------------------------------------------
+    # Steps.
+    def _one_step(self, b: Block, st: FlowState, cm, carry: StepCarry):
+        """Boundaries and the fused step on one extended block; returns
+        (new_state, owned max speed, new comp).  No exchange, no
+        controller."""
+        c = _carry_on(carry, b.device)
+        params = self.params
+        bout = apply_boundaries(b.boundaries, st, b.static, c.t, c.dt,
+                                c.t_hydro, params, b.force_mask, comp=cm)
+        st, cm = bout if cm is not None else (bout, None)
+        mesh = dict(origin=b.origin, logical=self.logical,
+                    speed_window=b.speed_window)
+        if self.scheme.name == "muscl-hancock":
+            out = muscl_step_split(st, b.static, c.dt, params,
+                                   self.muscl_variant, cm, **mesh)
+        else:
+            out = stencil_step(self.scheme.name, st, b.static, c.dt, params,
+                               comp=cm,
+                               simplified_speed=self.ts_params
+                               .simplified_speed, **mesh)
+        return out[0], out[1], (out[2] if cm is not None else None)
+
+    def _step_all(self, states, comps, carry):
+        """One step of every block from the same carry; returns the new
+        states and comps and the max of the blocks' owned maxima on the
+        carry's device."""
+        out = [self._one_step(b, st, cm, carry)
+               for b, st, cm in zip(self.blocks, states, comps)]
+        return ([o[0] for o in out], [o[2] for o in out],
+                _max_on((o[1] for o in out), carry.t.device))
+
+    def _advance(self, carry, speed, sync_time):
+        return advance(carry, speed, sync_time, self.end_time,
+                       self.params.dx, self.ts_params)
+
+    def _frozen_window(self, states, comps, carry, g, sync_time):
+        """``window`` steps on the frozen speed ``g`` (dt from g *
+        dt_safety through the controller's clamp ladder), and the max
+        speed observed over them."""
+        smax = torch.zeros_like(g)
+        for _ in range(self.window):
+            states, comps, local = self._step_all(states, comps, carry)
+            carry = self._advance(carry, g * self.dt_safety, sync_time)
+            smax = torch.maximum(smax, local)
+        return states, comps, carry, smax
+
+    def owned_max_speed(self, carry):
+        """The max wave speed over every block's owned cells."""
+        return _max_on((max_wave_speed(
+            *(a[b.interior] for a in b.state), b.static.zb[b.interior],
+            self.params.quite_small, self.ts_params.simplified_speed)
+            for b in self.blocks), carry.t.device)
+
+    def run_batch(self, carry: StepCarry, sync_time, n_windows: int):
+        """``n_windows`` exchange windows of ``window`` steps each; returns
+        the carry, with the batch's NaN probe folded in."""
+        states = [b.state for b in self.blocks]
+        comps = [b.comp for b in self.blocks]
+        ts, dx, safety = self.ts_params, self.params.dx, self.dt_safety
+        # One max seeds the first window's frozen speed.
+        g = self.owned_max_speed(carry) if self.amortise else None
+        for _ in range(n_windows):
+            self._refresh_all(states, comps)
+            if not self.amortise:
+                for _ in range(self.window):
+                    states, comps, gmax = self._step_all(states, comps,
+                                                         carry)
+                    carry = self._advance(carry, gmax, sync_time)
+                continue
+            saved = (states, comps, carry)
+            states, comps, carry, gobs = self._frozen_window(
+                states, comps, carry, g, sync_time)
+            # The window's dts came from g * dt_safety: valid iff the
+            # observed speed kept within the margin.  ~(<=): a NaN
+            # observed speed counts as violated.
+            tries = 0
+            while tries < MAX_RERUNS and bool(~(gobs <= g * safety)):
+                # A non-finite observed speed carries no value: double the
+                # frozen speed (halve the dt) instead.
+                g = torch.where(torch.isfinite(gobs), gobs, g * 2.0)
+                s0, m0, c0 = saved
+                # The carried-in dt came from the stale speed: cap it too,
+                # keeping the negative-dt suspension.
+                dt_cap = ts.courant * dx / (g * safety)
+                c0 = c0._replace(dt=torch.where(
+                    c0.dt > 0.0, torch.minimum(c0.dt, dt_cap), c0.dt))
+                states, comps, carry, gobs = self._frozen_window(
+                    s0, m0, c0, g, sync_time)
+                tries += 1
+                self.reruns += 1
+            # The observed max seeds the next window's frozen speed.
+            g = gobs
+        for b, st, cm in zip(self.blocks, states, comps):
+            b.state, b.comp = st, cm
+        # NaN/Inf probe, as in Simulation._run_batch: divergence poisons
+        # the batch statistic the host reads.
+        poison = None
+        for b in self.blocks:
+            s = torch.sum(b.state.z[b.interior]).to(carry.t.device)
+            poison = s if poison is None else poison + s
+        return carry._replace(batch_dt_total=carry.batch_dt_total
+                              + 0.0 * poison)

@@ -60,3 +60,25 @@ class ProgressReporter:
             self.log.line(f"  Throughput:  {total * cells / wall / 1e6:.1f} "
                           f"Mcells/s")
 
+
+
+def device_table(sim):
+    """Per-block rows for a mesh run, the reference's per-domain progress
+    table (src/CModel.cpp:343-462) re-shaped for one shared time step:
+    every block advances in lock step (one global dt), so the figures that
+    vary per domain in the reference (batch size, average dt) are shared
+    here, and the table reports each block's device, its place in the
+    mesh, its rows and columns of the logical grid and its cells.
+    Returns a list of formatted lines (none without a mesh)."""
+    if sim.mesh is None:
+        return []
+    from ..parallel.mesh import block_geometry
+    lines = ["  device      placement   block rows        block cols       "
+             "cells"]
+    for (iy, ix), (r0, nr, c0, nc) in sorted(block_geometry(
+            sim.domain.rows, sim.domain.cols, sim.mesh.shape).items()):
+        lines.append(
+            f"  {str(sim.mesh.devices[iy, ix]):<10}  ({iy},{ix})      "
+            f"[{r0:>6}..{r0 + nr:>6})  [{c0:>6}..{c0 + nc:>6})  "
+            f"{nr * nc:>10,}")
+    return lines

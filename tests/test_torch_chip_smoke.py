@@ -218,14 +218,15 @@ def test_kernels_record():
              for r, c, *_ in chip_smoke.CASES for m in ("f64", "f32c")}
     rec = chip_smoke.kernels_record(
         times, {n: 0.0 for n in names}, {n: 7 for n in names}, rows * cols,
-        0.25)
+        0.25, {n: 4 for n in names})
     assert [r["name"] for r in rec] == names and len(rec) == 7
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "mesh_launches"}
     for k, r in enumerate(rec):
         assert set(r) == keys and r["route"] == "cuda"
-        assert (r["ms"], r["plain_ms"], r["launches"]) == (1.0 + k, 2.0 + k,
-                                                           7)
+        assert (r["ms"], r["plain_ms"], r["launches"],
+                r["mesh_launches"]) == (1.0 + k, 2.0 + k, 7, 4)
         assert (ROOT / r["source"]).is_file()
         path, line = r["replaces"].split(":")
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
@@ -246,3 +247,51 @@ def test_patch_manning_is_constant_per_patch(patch):
             block = n[r0:r0 + pr, c0:c0 + pc]
             assert (block == block[0, 0]).all()
     assert (n[:, pc] != n[:, pc - 1]).any() and (n[pr] != n[pr - 1]).any()
+
+
+def test_mesh_paths_on_cpu(tmp_path):
+    """Phases 4g and 4h on CPU blocks: the pluvial model as a lock-step
+    2x2 mesh writes rasters bit-equal to the one-device run's (checked
+    inside _same_rasters), and the radar model as a 2x1 mesh takes its
+    forecast window from the bands' overlap, holds the mass balance and
+    stays within the window-mode bars of the one-device depth."""
+    one = _main_path_on_cpu(tmp_path / "one", "godunov")
+    mesh = chip_smoke.run_main_path(tmp_path / "mesh", "cpu", 32, 48, 30.0,
+                                    15.0, mass_tol=0.05, sync="timestep",
+                                    extra=("--mesh-shape", "2x2"))
+    assert "Window:      1 step(s)" in mesh["log"]
+    assert mesh["steps"] == one["steps"]
+    for t in (15.0, 30.0):
+        chip_smoke._same_rasters("4g", tmp_path / "mesh", tmp_path / "one",
+                                 t)
+    ref = chip_smoke.run_radar_path(tmp_path / "radar", "cpu", 96, 128, 60.0,
+                                    30.0, interval=20.0, rain_cell=50.0,
+                                    mass_tol=0.05)
+    res = chip_smoke.run_mesh_radar_path(
+        tmp_path / "mesh_radar", "cpu", 96, 128, 60.0, 30.0,
+        ref_root=tmp_path / "radar", interval=20.0, rain_cell=50.0,
+        mass_tol=0.05)
+    assert res["window"] == 3 and res["reruns"] >= 0
+    assert abs(res["rel"] - ref["rel"]) < 0.01
+    assert res["mean_diff"] <= chip_smoke.WINDOW_DEPTH_BARS[0]
+    assert not any(res["launches"].values())
+
+
+def test_mesh_kernels_phase_on_cpu(monkeypatch):
+    """Phase 3d's checks at a small grid with the plain versions on the
+    CPU (the timing stubbed): the blocks of a 2x2 split and a ragged
+    south-east block agree with the plain versions and, on their owned
+    cells, with the whole grid's step."""
+    monkeypatch.setattr(chip_smoke, "CASES", ((130, 197, 1, 1),))
+    monkeypatch.setattr(chip_smoke, "_time_ms", lambda torch, fn, reps: 0.0)
+    blocks = chip_smoke.mesh_blocks
+    monkeypatch.setattr(chip_smoke, "mesh_blocks", lambda rows, cols: blocks(
+        rows, cols, ragged=(37, 53)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    times = {(n, 130, 197, m): (0.0, 0.0) for n in chip_smoke.MESH_KERNELS
+             for m in ("f64", "f32", "f32c")}
+    worst, mesh_times = chip_smoke.phase_mesh_vs_plain(
+        torch, torch.device("cpu"), times)
+    assert set(worst) == set(chip_smoke.MESH_KERNELS)
+    assert all(v == 0.0 for v in worst.values())
+    assert len(mesh_times) == 12

@@ -114,9 +114,7 @@ def test_reference_command_line_runs(tmp_path, capsys):
         np.testing.assert_allclose(got, jax, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2"], ["--distributed", "env"],
-                                  ["--mesh-shape", "2x1"],
-                                  ["--mesh", "2", "--checkpoint", "c.npz"],
+@pytest.mark.parametrize("argv", [["--distributed", "env"],
                                   ["--io-mode", "stream"]])
 def test_unported_flags_exit_1(tmp_path, argv, capsys):
     build_dam_break(tmp_path)
@@ -124,6 +122,25 @@ def test_unported_flags_exit_1(tmp_path, argv, capsys):
                      "cpu"] + argv)
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "2"], ["--mesh-shape", "2x1"],
+                                  ["--mesh", "2", "--checkpoint", "c.npz"]])
+def test_mesh_flags_run(tmp_path, argv):
+    """The mesh flags run the model on CPU blocks: rc 0 and rasters equal
+    to the one-device run's (and, with --checkpoint, a checkpoint)."""
+    for run in ("one", "mesh"):
+        build_dam_break(tmp_path / run, n=100, duration=8.0)
+    assert torch_main(["-c", str(tmp_path / "one" / "dam-break.xml"), "-q",
+                       "--platform", "cpu"]) == 0
+    argv = [str(tmp_path / a) if a.endswith(".npz") else a for a in argv]
+    assert torch_main(["-c", str(tmp_path / "mesh" / "dam-break.xml"), "-q",
+                       "--platform", "cpu"] + argv) == 0
+    for t in (2, 4, 6, 8):
+        got, want = (_depth(tmp_path / run / "output" / f"depth_{t}.tif")
+                     for run in ("mesh", "one"))
+        assert np.array_equal(got, want)
+    assert (tmp_path / "c.npz").exists() == ("--checkpoint" in argv)
 
 
 def test_gpu_platform_without_cuda_fails_cleanly(tmp_path, capsys):

@@ -13,7 +13,10 @@ expected under --fmad=false), float32 to rtol 1e-5 / atol 1e-6, and the
 true surface z + comp to 1e-6.  At the ragged shapes every kernel is held
 to its plain version bit for bit (torch.equal), K4 under three layouts of
 the Manning n, K5b also at chunk heights of 1 to 64 rows, and the
-recompute chain and K5b to split12.
+recompute chain and K5b to split12.  In mesh mode (a halo-extended block:
+``origin``, ``logical``, ``speed_window``) K1, K4, K3 and K5a-C equal their
+plain versions bit for bit, their owned cells equal the whole-grid
+kernel's, and the one-device defaults given outright change nothing.
 """
 
 import numpy as np
@@ -24,6 +27,8 @@ from chip_smoke import ONE_MANNING, patch_manning, random_domain
 from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import muscl_split as ms
 from hipims_tpu_torch.ops.kernels import stencil as st
+from hipims_tpu_torch.ops.timestep import max_wave_speed
+from hipims_tpu_torch.parallel.halo_deep import extend
 from hipims_tpu_torch.state import DomainStatic, FlowState
 
 MODES = ["f64", "f32", "f32c"]
@@ -215,27 +220,31 @@ def test_muscl_kernels_reject_bad_inputs():
         ms.muscl_predict(state, static, dt.double(), PARAMS)
 
 
-def _plain_and_kernel(name, state, static, comp, dt):
-    """(kernel result, plain result) of kernel ``name`` on the inputs; the
-    correctors take the plain predictor's planes."""
+def _plain_and_kernel(name, state, static, comp, dt, **mesh):
+    """(kernel result, plain result) of kernel ``name`` on the inputs, with
+    the ``mesh`` options (not K5b's); the correctors take the plain
+    predictor's planes."""
     pred = ms.muscl_predict_plain(state, static, dt, PARAMS)
     base = pred[:4].contiguous()
     return {
         "K1": lambda: (
-            st.godunov_fused(state, static, dt, PARAMS, comp=comp),
-            st.stencil_step_plain(state, static, dt, PARAMS, comp=comp)),
+            st.godunov_fused(state, static, dt, PARAMS, comp=comp, **mesh),
+            st.stencil_step_plain(state, static, dt, PARAMS, comp=comp,
+                                  **mesh)),
         "K3": lambda: (
-            ms.muscl_correct(state, static, pred, dt, PARAMS, comp=comp),
+            ms.muscl_correct(state, static, pred, dt, PARAMS, comp=comp,
+                             **mesh),
             ms.muscl_correct_plain(state, static, pred, dt, PARAMS,
-                                   comp=comp)),
+                                   comp=comp, **mesh)),
         "K4": lambda: (
-            st.inertial_fused(state, static, dt, PARAMS, comp=comp),
-            st.inertial_step_plain(state, static, dt, PARAMS, comp=comp)),
+            st.inertial_fused(state, static, dt, PARAMS, comp=comp, **mesh),
+            st.inertial_step_plain(state, static, dt, PARAMS, comp=comp,
+                                   **mesh)),
         "K5a-C": lambda: (
             ms.muscl_correct_recompute(state, static, base, dt, PARAMS,
-                                       comp=comp),
+                                       comp=comp, **mesh),
             ms.muscl_correct_plain(state, static, base, dt, PARAMS,
-                                   comp=comp)),
+                                   comp=comp, **mesh)),
         "K5b": lambda: (
             st.muscl_fused(state, static, dt, PARAMS, comp=comp),
             st.muscl_step_plain(state, static, dt, PARAMS, comp=comp)),
@@ -253,6 +262,82 @@ def test_kernels_bit_equal_at_ragged_shapes(name, mode, shape):
     state, static, comp, dt = _inputs(mode, *shape)
     got, want = _plain_and_kernel(name, state, static, comp, dt)
     for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(g, w)
+
+
+MESH_KERNELS = ["K1", "K3", "K4", "K5a-C"]
+
+
+def _mesh_options(rows, cols):
+    """A block whose [0, 0] is the global cell (-3, 50) of a grid that
+    ends 5 columns before the block does: the logical ring crosses it on
+    its north and east sides; it owns all but 5 rows and 9 columns a
+    side."""
+    return dict(origin=(-3, 50), logical=(rows + 40, 50 + cols - 5),
+                speed_window=(5, rows - 10, 9, cols - 18))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128), (65, 121), (65, 113)])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", MESH_KERNELS)
+def test_mesh_mode_kernels_bit_equal(name, mode, shape):
+    """K1, K4, K3 and K5a-C with a block's origin, logical grid and owned
+    window equal their plain versions bit for bit, at an aligned shape
+    and at the ragged ones of either halo width."""
+    state, static, comp, dt = _inputs(mode, *shape)
+    got, want = _plain_and_kernel(name, state, static, comp, dt,
+                                  **_mesh_options(*shape))
+    for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own", [(0, 40, 0, 50), (40, 41, 60, 70),
+                                 (81, 49, 130, 67)])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", MESH_KERNELS)
+def test_mesh_mode_owned_cells_equal_the_whole_grid(name, mode, own):
+    """One step of a block of the 130 x 197 grid, extended by 3 cells a
+    side into a zero frame (the halo-deep window's layout): its owned
+    cells equal the whole-grid kernel's same cells, bit for bit, and its
+    max speed is the max over them."""
+    state, static, comp, dt = _inputs(mode, 130, 197)
+    pad = 3
+    r0, nr, c0, nc = own
+
+    def ext(a):
+        return None if a is None else extend(a, own, (pad, pad), a.device)
+
+    block = (FlowState(*map(ext, state)), DomainStatic(*map(ext, static)),
+             ext(comp))
+    whole, _ = _plain_and_kernel(name, state, static, comp, dt)
+    got, _ = _plain_and_kernel(
+        name, *block, dt, origin=(r0 - pad, c0 - pad), logical=(130, 197),
+        speed_window=(pad, nr, pad, nc))
+    mine = (slice(pad, pad + nr), slice(pad, pad + nc))
+    theirs = (slice(r0, r0 + nr), slice(c0, c0 + nc))
+    for g, w in zip([*got[0], *got[2:]], [*whole[0], *whole[2:]]):
+        assert torch.equal(g[mine], w[theirs])
+    new = whole[0]
+    assert torch.equal(got[1], max_wave_speed(
+        *(a[theirs] for a in new), static.zb[theirs], PARAMS.quite_small,
+        name == "K4"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", MESH_KERNELS)
+def test_mesh_defaults_change_nothing(name, mode):
+    """The one-device options given outright launch the same bits as no
+    options."""
+    rows, cols = 65, 121
+    state, static, comp, dt = _inputs(mode, rows, cols)
+    plain, _ = _plain_and_kernel(name, state, static, comp, dt)
+    given, _ = _plain_and_kernel(name, state, static, comp, dt,
+                                 origin=(0, 0), logical=(rows, cols),
+                                 speed_window=(0, rows, 0, cols))
+    for g, w in zip([*given[0], *given[1:]], [*plain[0], *plain[1:]]):
         assert torch.equal(g, w)
 
 

@@ -12,6 +12,7 @@ from hipims_tpu.runtime import Simulation as JSimulation
 from hipims_tpu.runtime import SimulationConfig as JConfig
 from hipims_tpu_torch.domain import Domain
 from hipims_tpu_torch.ops.boundaries import UniformBoundary
+from hipims_tpu_torch.parallel import make_mesh
 from hipims_tpu_torch.runtime import Simulation, SimulationConfig
 from hipims_tpu_torch.state import to_numpy
 
@@ -145,12 +146,14 @@ def test_stall_raises():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
     (dict(config=SimulationConfig(io_mode="stream")), NotImplementedError),
     (dict(config=SimulationConfig(io_mode="auto", io_stream_cells=100)),
      NotImplementedError),
     (dict(config=SimulationConfig(scheme="no-such-scheme")), ValueError),
     (dict(config=SimulationConfig(forecast_dt_safety=0.5)), ValueError),
+    # Blocks of one column leave no room for a step's two halo cells.
+    (dict(mesh=make_mesh(shape=(1, 40), devices=["cpu"] * 40)), ValueError),
 ])
 def test_unported_and_invalid_configs_raise(kw, err):
     _, pd = _domains()
