@@ -72,6 +72,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and stitched equal the loader's bed.  Prints walls, steps, the seconds
    of each output event (host copy, raster, gauge, checkpoint) and the
    checkpoint's size;
+4i. phase 4f's model directory at 4096x4096 (16.78 M cells) with the
+   default io_mode, "auto", which streams output events from 16 M cells
+   (runtime/sharded_io.py: bounded row chunks, no host copy of the grid):
+   run A 120 s with --checkpoint (events at 60 and 120 s), run B resumed
+   from A's streamed 60 s checkpoint, run G the same model with --io-mode
+   gather.  Checks: every step of the three launches K1; A's and B's
+   events streamed, G's gathered; A's depth rasters and gauge CSV the
+   bytes of G's; B's 120 s raster and gauge row bit-equal to A's; A's
+   mass balance within 1% of the frames' rain minus the loss; no chunk
+   set over io_chunk_mb.  Prints walls, steps and each event by part
+   (the chunk copies summed, derive and write of the raster, gauge,
+   device volume, checkpoint) and its largest chunk set;
 4g. the phase-4 model through the CLI with ``--mesh-shape 2x2`` (four
    blocks on the card, lock-step: ``syncMethod="timestep"``), 300 s: its
    300 s rasters bit-equal to phase 4's, the mass balance, 4 K1 launches
@@ -90,14 +102,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    for phase 4f's model (50 m rain cells, frames every 60 s), whose gauge
    rows must agree too; 5f: Godunov, MUSCL (split12 and recompute) and
    inertial at 128x128 as a 2x2 mesh in forecast windows of 4 steps with
-   the frozen-speed dt, card against CPU (MUSCL for 60 s: MESH_SLICES).
+   the frozen-speed dt, card against CPU (MUSCL for 60 s: MESH_SLICES);
+   5g: phase 4f's model at 128x128 as a 2x2 mesh on the card, io_mode
+   "stream", each event also written from a gathered snapshot of the same
+   state: rasters, gauge CSV and checkpoint members equal, 4 K1 launches
+   per step and re-run step.
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
    tests/test_torch_cli.py.)
 
 The line before the last is a JSON record of the seven kernels (with
-each kernel's launches in the mesh phases 4g, 4h and 5f); the last line
+each kernel's launches in the mesh phases 4g, 4h, 5f and 5g); the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this file, it prints no result and exits with status 2.
 Terrain and inputs are made from fixed seeds; nothing is downloaded.
@@ -190,6 +206,9 @@ BREACH_M3_S = 400.0
 # main paths' grid, Thamesmead-class 9.04 M cells.
 CASES = ((32, 128, 20, 5), (1408, 1408, 20, 3), (1297, 1681, 10, 2),
          (2944, 3072, 10, 2))
+# Phase 4i's grid: 16.78 M cells, past the 16 M at which io_mode "auto"
+# streams output events.
+STREAM_GRID = (4096, 4096)
 
 
 def _write_dem(root, bed, dx):
@@ -809,26 +828,56 @@ def run_api_path(root, device, rows, cols, duration, variant,
                 launches=launches, rel=rel)
 
 
+# The timed parts of an output event (seconds); an event's dict may also
+# hold "chunk_set_bytes", the largest chunk set a streamed event copied.
+EVENT_PARTS = ("copy", "snapshot", "chunks", "raster", "gauge", "volume",
+               "checkpoint")
+
+
 @contextlib.contextmanager
 def output_events():
-    """Time every output event's parts while the block runs (host copy of
-    the state, rasters, gauges, checkpoint: one dict per event in the
-    list it yields), and keep a copy of each checkpoint written as
-    <stem>_<t>.npz beside it."""
-    from hipims_tpu_torch.runtime import checkpoint, output, simulation
+    """Time every output event's parts while the block runs, one dict per
+    event in the list it yields: the gathered event's host copy of the
+    state ("copy"), or the streamed event's snapshot and its row-chunk
+    copies off the device, summed ("chunks"), and its largest chunk set
+    ("chunk_set_bytes"); then the rasters (derive and write, all
+    targets), the gauges, the streamed event's volume (a device sum) and
+    the checkpoint, each without the chunk copies made inside it.  Keeps
+    a copy of each checkpoint written as <stem>_<t>.npz beside it."""
+    from hipims_tpu_torch.runtime import (checkpoint, output, sharded_io,
+                                          simulation)
     from hipims_tpu_torch.utils import time_label
 
     events = []
+    streamed = [False]      # whether the open event streams
 
     def timed(fn, part):
         def wrapper(*args, **kw):
+            if part in ("copy", "snapshot"):
+                events.append({})
+                streamed[0] = part == "snapshot"
+            elif part in ("chunks", "volume") and not streamed[0]:
+                # A gathered event's chunk is its host copy, and the
+                # start volume is read before any event.
+                return fn(*args, **kw)
+            chunks0 = events[-1].get("chunks", 0.0)
             t0 = time.perf_counter()
             out = fn(*args, **kw)
-            if part == "copy":
-                events.append({})
-            events[-1][part] = (events[-1].get(part, 0.0)
-                                + time.perf_counter() - t0)
+            spent = time.perf_counter() - t0
+            if part != "chunks":
+                spent -= events[-1].get("chunks", 0.0) - chunks0
+            events[-1][part] = events[-1].get(part, 0.0) + spent
             return out
+        return wrapper
+
+    def chunk_sets(fn):
+        def wrapper(self, *args, **kw):
+            for r0, st, sc in fn(self, *args, **kw):
+                if streamed[0]:
+                    size = sum(a.nbytes for a in (*st, *sc))
+                    events[-1]["chunk_set_bytes"] = max(
+                        size, events[-1].get("chunk_set_bytes", 0))
+                yield r0, st, sc
         return wrapper
 
     def save(path, sim, snapshot=None):
@@ -837,15 +886,20 @@ def output_events():
         shutil.copy(path, path.with_name(
             f"{path.stem}_{time_label(sim.t)}{path.suffix}"))
 
-    saved = [(simulation._OutputSnapshot, "__init__"),
-             (output.RasterOutputWriter, "__call__"),
-             (output.GaugeOutputWriter, "__call__"),
-             (checkpoint, "save_checkpoint")]
+    timed_parts = [(simulation._OutputSnapshot, "__init__", "copy"),
+                   (simulation._StreamingSnapshot, "__init__", "snapshot"),
+                   (sharded_io, "host_rows", "chunks"),
+                   (output.RasterOutputWriter, "__call__", "raster"),
+                   (output.GaugeOutputWriter, "__call__", "gauge"),
+                   (simulation.Simulation, "volume", "volume")]
+    saved = [(obj, name) for obj, name, _ in timed_parts] + [
+        (simulation._Snapshot, "stream_chunks"),
+        (checkpoint, "save_checkpoint")]
     originals = [getattr(obj, name) for obj, name in saved]
-    save_timed = timed(checkpoint.save_checkpoint, "checkpoint")
-    for (obj, name), fn, part in zip(saved[:3], originals,
-                                     ("copy", "raster", "gauge")):
-        setattr(obj, name, timed(fn, part))
+    for obj, name, part in timed_parts:
+        setattr(obj, name, timed(getattr(obj, name), part))
+    simulation._Snapshot.stream_chunks = chunk_sets(originals[-2])
+    save_timed = timed(originals[-1], "checkpoint")
     checkpoint.save_checkpoint = save
     try:
         yield events
@@ -854,15 +908,27 @@ def output_events():
             setattr(obj, name, fn)
 
 
+def format_events(events):
+    """One output event per "; "-separated item: its parts in seconds,
+    and its largest chunk set in MiB where it streamed."""
+    return "; ".join(", ".join(
+        [f"{k} {e[k]:.2f}" for k in EVENT_PARTS if k in e]
+        + ([f"largest chunk set {e['chunk_set_bytes'] / 2 ** 20:.2f} MiB"]
+           if "chunk_set_bytes" in e else [])) for e in events)
+
+
 def run_radar_path(root, device, rows, cols, duration, outfreq,
                    interval=300.0, rain_cell=1000.0,
-                   mass_tol=MASS_BALANCE_REL):
-    """Phase 4f: write the radar model, run A through the CLI on
+                   mass_tol=MASS_BALANCE_REL, io_mode=None, gather_run=False):
+    """Phases 4f and 4i: write the radar model, run A through the CLI on
     ``device`` with --checkpoint (an output event every ``outfreq`` s),
     run B with --resume from A's first checkpoint, and check B against A
     bit for bit (raster and gauge row at ``duration``), A's mass balance
     against the frames' rain minus the loss, and the band DEMs against
-    the loader's bed.  Returns what it measured."""
+    the loader's bed.  A and B run with ``--io-mode io_mode`` where it is
+    given.  With ``gather_run``, run G is the same model with --io-mode
+    gather, whose depth rasters and gauge CSV must be A's bytes.  Returns
+    what it measured."""
     from hipims_tpu_torch.io.raster import read_raster
     from hipims_tpu_torch.io.xml_config import load_config
     from hipims_tpu_torch.models import get_scheme
@@ -872,12 +938,13 @@ def run_radar_path(root, device, rows, cols, duration, outfreq,
     xml = write_radar_model(root, rows, cols, duration, outfreq,
                             interval=interval, rain_cell=rain_cell)
     ck = root / "run.npz"
+    mode = ("--io-mode", io_mode) if io_mode else ()
     with output_events() as events_a:
-        res_a = _run_cli(xml, device, "--checkpoint", str(ck))
+        res_a = _run_cli(xml, device, "--checkpoint", str(ck), *mode)
     first = root / f"run_{time_label(outfreq)}.npz"
     with output_events() as events_b:
         res_b = _run_cli(root / "model_b.xml", device, "--resume",
-                         str(first))
+                         str(first), *mode)
     # The step counters resume with the checkpoint: run B's own steps are
     # those past it.
     with np.load(first) as data:
@@ -899,6 +966,19 @@ def run_radar_path(root, device, rows, cols, duration, outfreq,
             or rows_b[0] != rows_a[0] or len(rows_a[0].split(",")) != 9):
         raise RuntimeError(f"gauge rows: run A {rows_a}, run B {rows_b}")
 
+    res_g, events_g = None, None
+    if gather_run:
+        (root / "model_g.xml").write_text(xml.read_text().replace(
+            'targetDir="output/"', 'targetDir="output_g/"'))
+        with output_events() as events_g:
+            res_g = _run_cli(root / "model_g.xml", device, "--io-mode",
+                             "gather")
+        a, g = ({p.name: p.read_bytes() for p in (root / d).iterdir()}
+                for d in ("output", "output_g"))
+        if len(a) != n_out + 1 or a != g:
+            raise RuntimeError(f"streamed run A's outputs {sorted(a)} are "
+                               f"not the gathered run's bytes {sorted(g)}")
+
     ring = get_scheme("godunov").radius
     expected = radar_volume(root, rows, cols, duration, interval, ring)
     rel = (res_a["volumes"][-1] - expected) / expected
@@ -916,7 +996,8 @@ def run_radar_path(root, device, rows, cols, duration, outfreq,
     if not np.array_equal(stitched, load_config(xml).domain.zb):
         raise RuntimeError("the stitched .img DEM differs from the "
                            "loader's bed")
-    return dict(a=res_a, b=res_b, events_a=events_a, events_b=events_b,
+    return dict(a=res_a, b=res_b, g=res_g, events_a=events_a,
+                events_b=events_b, events_g=events_g,
                 rel=rel, expected=expected, gauges=rows_a,
                 checkpoint_mb=first.stat().st_size / 2 ** 20,
                 cells=rows * cols)
@@ -1245,6 +1326,74 @@ def phase_mesh_slices(torch, root):
     return out, launches
 
 
+def run_mesh_stream_path(root, device, rows, cols, duration, outfreq,
+                         interval=60.0, rain_cell=50.0):
+    """Phase 5g: phase 4f's model as a 2x2 mesh (forecast windows) on
+    ``device`` ("cuda" or "cpu") through load_config -> Simulation.run
+    with io_mode "stream" and its default batches, writing a checkpoint
+    at every event.  Each event is also written from a gathered snapshot
+    of the same state, the blocks assembled, by the model's writers into
+    its other output directory: the streamed rasters and gauge CSV must
+    be the gathered ones' bytes, and at every event the streamed
+    checkpoint's members the gathered checkpoint's, or the error names
+    the members that differ.  Returns what it measured."""
+    import torch
+
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.parallel import make_mesh
+    from hipims_tpu_torch.runtime import checkpoint, simulation
+
+    root = Path(root)
+    xml = write_radar_model(root, rows, cols, duration, outfreq,
+                            interval=interval, rain_cell=rain_cell)
+    gather_writer = load_config(xml).output_writer()
+    model = load_config(root / "model_b.xml")
+    model.config.io_mode = "stream"
+    sim = model.simulation(mesh=make_mesh(
+        4, shape=(2, 2), devices=None if device == "cuda"
+        else [torch.device("cpu")] * 4))
+    sim.checkpoint_path = root / "stream.npz"
+    emit_streamed = sim.emit_output
+
+    def emit_both(t):
+        emit_streamed(t)
+        snap = simulation._OutputSnapshot(sim)
+        checkpoint.save_checkpoint(root / "gather.npz", sim, snapshot=snap)
+        gather_writer(snap, t)
+        with np.load(root / "gather.npz") as g, \
+                np.load(root / "stream.npz") as s:
+            differ = {k: _max_diff(g[k], s[k]) for k in g.files
+                      if k not in s.files or not np.array_equal(g[k], s[k])}
+            if g.files != s.files or differ:
+                raise RuntimeError(
+                    f"5g: at t={t} the streamed mesh checkpoint's members "
+                    f"{s.files} differ from the gathered one's {g.files}: "
+                    f"max|diff| {differ}")
+
+    sim.emit_output = emit_both
+    _reset_launches()
+    sim.run()
+    res = dict(steps=sim.total_steps, idle=sim.total_skipped,
+               reruns=sim.window_reruns, window=sim.window,
+               launches=_read_launches())
+    g, s = ({p.name: p.read_bytes() for p in (root / d).iterdir()}
+            for d in ("output", "output_b"))
+    if len(g) != int(round(duration / outfreq)) + 1 or g != s:
+        raise RuntimeError(f"5g: streamed mesh outputs {sorted(s)} are not "
+                           f"the gathered snapshots' bytes {sorted(g)}")
+    return res
+
+
+def _max_diff(a, b):
+    """max|a - b| of two checkpoint members, or their values where they
+    are not numbers."""
+    if a.dtype.kind in "fiu" and b.dtype.kind in "fiu" and \
+            a.shape == b.shape:
+        return float(np.max(np.abs(a.astype(np.float64)
+                                   - b.astype(np.float64)), initial=0.0))
+    return f"{a!r} vs {b!r}"
+
+
 def _expect_launches(label, launches, want):
     """Raise unless the wrappers named in ``want`` launched that many
     times (at least once) and every other wrapper not at all."""
@@ -1471,8 +1620,7 @@ def main() -> int:
             r = res_f[run]
             _expect_launches(f"phase 4f run {run.upper()}", r["launches"], {
                 "godunov_fused": r["steps"] + r["idle"]})
-            events = "; ".join(", ".join(f"{k} {v:.2f}" for k, v in e.items())
-                               for e in res_f[f"events_{run}"])
+            events = format_events(res_f[f"events_{run}"])
             print(f"phase 4f: radar model run {run.upper()} {rows}x{cols} "
                   f"f32c, two HFA row bands, "
                   + ("0-300 s with --checkpoint" if run == "a" else
@@ -1543,6 +1691,45 @@ def main() -> int:
               f"{WINDOW_DEPTH_BARS[1]:g}); launches: godunov_fused "
               f"{res_h['launches']['godunov_fused']}", flush=True)
 
+        # Phase 4i: phase 4f's model at 16.78 M cells with the default
+        # io_mode ("auto" streams from 16 M cells), and run G gathered.
+        srows, scols = STREAM_GRID
+        t_4i = time.perf_counter()
+        res_i = run_radar_path(Path(tmp) / "stream", "gpu", srows, scols,
+                               120.0, 60.0, gather_run=True)
+        from hipims_tpu_torch.runtime import SimulationConfig
+        budget = SimulationConfig().io_chunk_mb << 20
+        for run in ("a", "b", "g"):
+            r = res_i[run]
+            _expect_launches(f"phase 4i run {run.upper()}", r["launches"], {
+                "godunov_fused": r["steps"] + r["idle"]})
+            events = res_i[f"events_{run}"]
+            streamed = all("snapshot" in e and "copy" not in e
+                           for e in events)
+            if streamed != (run != "g"):
+                raise RuntimeError(f"phase 4i run {run.upper()}: streamed "
+                                   f"events expected: {events}")
+            if any(e.get("chunk_set_bytes", 0) > budget for e in events):
+                raise RuntimeError(f"phase 4i: a chunk set over {budget} "
+                                   f"bytes: {events}")
+            print(f"phase 4i: radar model run {run.upper()} {srows}x{scols} "
+                  f"f32c, " + {"a": "0-120 s streamed with --checkpoint",
+                               "b": "--resume 60-120 s streamed",
+                               "g": "0-120 s --io-mode gather"}[run]
+                  + f": {r['steps']} steps (+{r['idle']} idle), wall "
+                  f"{r['wall_s']:.2f} s (set-up "
+                  f"{r['wall_s'] - r['run_s']:.1f} s, run with outputs "
+                  f"{r['run_s']:.1f} s) on {smi}; output events (s): "
+                  f"{format_events(events)}; launches: godunov_fused "
+                  f"{r['launches']['godunov_fused']}", flush=True)
+        print(f"phase 4i: streamed rasters and gauge CSV byte-equal to the "
+              f"gathered run's; resumed raster and gauge row bit-equal to "
+              f"run A's; mass balance {res_i['rel']:+.4%} of the frames' "
+              f"rain - loss ({res_i['expected']:.1f} m3); streamed "
+              f"checkpoint {res_i['checkpoint_mb']:.1f} MiB (budget per "
+              f"chunk set {budget / 2 ** 20:g} MiB); phase 4i wall "
+              f"{time.perf_counter() - t_4i:.1f} s", flush=True)
+
         # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
         # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
         slices = [(label, scheme, write_glasgow_model(
@@ -1574,6 +1761,20 @@ def main() -> int:
                           f"max|diff| {e5:.3e}"
                           for label, (st5, w, rr, e5) in slices.items()),
               flush=True)
+        res_5g = run_mesh_stream_path(Path(tmp) / "mesh_stream", "cuda",
+                                      128, 128, 120.0, 60.0)
+        for n, c in res_5g["launches"].items():
+            mesh_launches[n] += c
+        _expect_launches("phase 5g", res_5g["launches"], {
+            "godunov_fused": 4 * (res_5g["steps"] + res_5g["idle"]
+                                  + res_5g["window"] * res_5g["reruns"])})
+        print(f"phase 5g: radar model 128x128 f32c as a 2x2 mesh, io_mode "
+              f"stream on the card, each event against a gathered snapshot "
+              f"of the same state: rasters, gauge CSV and every checkpoint "
+              f"member equal; {res_5g['steps']} steps "
+              f"(+{res_5g['idle']} idle), window {res_5g['window']}, "
+              f"{res_5g['reruns']} re-runs, launches: godunov_fused "
+              f"{res_5g['launches']['godunov_fused']}", flush=True)
 
     # The kernels line: launches on each kernel's main path, times and
     # bounds of one f32c step at 9.04 M cells on the random domain.

@@ -149,12 +149,14 @@ class SimulationHandle:
     def field(self, value: str) -> np.ndarray:
         """One derived field (runtime/output.py VALUE_NAMES) in domain
         orientation: from the event's snapshot inside an on_output
-        callback, else from a fresh host copy of the state."""
+        callback, else from a new snapshot of the run.  A streaming
+        snapshot assembles only the requested field, from row chunks."""
         from .runtime.output import derive_field
-        view = self._snapshot if self._snapshot is not None else self._sim
-        return derive_field(value, view.state_logical, view.static_logical,
-                            self._sim.domain.dx,
-                            datum=self._sim.domain.datum)
+        view = (self._snapshot if self._snapshot is not None
+                else self._sim.output_view())
+        dx, datum = self._sim.domain.dx, self._sim.domain.datum
+        return np.concatenate([derive_field(value, st, sc, dx, datum=datum)
+                               for _r0, st, sc in view.stream_chunks()])
 
     @property
     def simulation(self):

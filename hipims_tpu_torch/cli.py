@@ -3,7 +3,7 @@
 Usage:
     python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
         [--checkpoint run.npz] [--resume run.npz]
-        [--mesh N] [--mesh-shape RxC]
+        [--mesh N] [--mesh-shape RxC] [--io-mode auto|gather|stream]
 
 The reference's own command line (``-c model.xml -m -x dir -s``) runs
 too: ``-m`` and ``-x`` are accepted and ignored, each with a note.
@@ -13,6 +13,9 @@ case the plain PyTorch versions of the kernels run on the CPU.  ``--mesh``
 and ``--mesh-shape`` split the grid into blocks stepped in halo-deep
 windows (``parallel/``): on the visible CUDA devices, several blocks to a
 card where there are fewer cards than blocks, or all on the CPU.
+``--io-mode stream`` (and the default "auto" at 16 M cells and more)
+writes every output event from bounded row chunks
+(runtime/sharded_io.py), on one device and under a mesh.
 """
 
 from __future__ import annotations
@@ -50,7 +53,9 @@ def parse_args(argv=None):
                     help="log the domain water volume at every output time")
     ap.add_argument("--io-mode", default=None,
                     choices=("auto", "gather", "stream"),
-                    help="output gathering; only 'gather' is ported")
+                    help="output events: 'gather' (a host copy of the "
+                         "grid), 'stream' (bounded row chunks) or 'auto' "
+                         "(stream from 16 M cells; the default)")
     ap.add_argument("--checkpoint", default=None, metavar="FILE",
                     help="(re)write a resumable checkpoint (.npz) at "
                          "every output time")
@@ -81,12 +86,9 @@ def main(argv=None):
                  "use --distributed (rank gating is automatic)")
     if args.code_dir:
         log.line("note: --code-dir ignored (no OpenCL sources to locate)")
-    unported = ["--distributed"] if args.distributed is not None else []
-    if args.io_mode == "stream":
-        unported.append("--io-mode stream")
-    if unported:
-        log.error(f"{', '.join(unported)}: not yet ported to "
-                  "hipims_tpu_torch (ROADMAP.md, queue 1)")
+    if args.distributed is not None:
+        log.error("--distributed: not yet ported to hipims_tpu_torch "
+                  "(ROADMAP.md, queue 1)")
         return 1
 
     try:
@@ -144,7 +146,7 @@ def main(argv=None):
 
     try:
         sim = model.simulation(device=device, mesh=mesh)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         log.error(f"Invalid model configuration: {e}")
         return 1
     if mesh is not None:
@@ -165,14 +167,13 @@ def main(argv=None):
     if args.checkpoint:
         sim.checkpoint_path = args.checkpoint
     if args.mass_balance:
-        from .runtime.output import domain_volume
         inner_writer = sim.output_writer
         vol0 = sim.volume()
 
         def mass_writer(view, t):
             if inner_writer is not None:
                 inner_writer(view, t)
-            vol = domain_volume(view, sim.domain)
+            vol = sim.volume()
             log.line(f"  Mass balance: t={t:.1f}s volume={vol:.3f} m3 "
                      f"(delta {vol - vol0:+.3f} vs start)")
 

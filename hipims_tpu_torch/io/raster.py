@@ -1,7 +1,7 @@
 """Raster read/write without GDAL.
 
 Formats:
-  * ESRI ASCII grid (.asc)        — read + write
+  * ESRI ASCII grid (.asc)        — read + write (streaming-capable)
   * GeoTIFF (.tif/.tiff)          — read (classic + BigTIFF;
                                     uncompressed/deflate strips or tiles)
                                     + write (deflate-compressed float32
@@ -88,22 +88,58 @@ def _read_asc(path: Path) -> Raster:
                   nodata=header.get("nodata_value", -9999.0))
 
 
-def _write_asc(path: Path, raster: Raster):
-    header = (f"ncols {raster.cols}\n"
-              f"nrows {raster.rows}\n"
-              f"xllcorner {raster.xll}\n"
-              f"yllcorner {raster.yll}\n"
-              f"cellsize {raster.cell_size}\n"
-              f"NODATA_value {raster.nodata}\n")
-    from ..native import asc_format_native
-    data = np.asarray(raster.data, dtype=np.float64)
-    body = asc_format_native(data)
-    with open(path, "wb") as f:
-        f.write(header.encode())
+class AscStripWriter:
+    """Incremental ESRI ASCII grid writer: rows stream in (top-down, map
+    orientation) and are formatted as they arrive, by the native host
+    codec where it builds, else ``np.savetxt`` (the same bytes); the
+    gathered writer is this one fed a single block, so streamed and
+    gathered files are the same bytes (runtime/sharded_io.py)."""
+
+    def __init__(self, path, width, height, xll=0.0, yll=0.0,
+                 cell_size=1.0, nodata=-9999.0):
+        self.width, self.height = int(width), int(height)
+        self._rows_in = 0
+        self._f = open(path, "wb")
+        self._f.write((f"ncols {width}\n"
+                       f"nrows {height}\n"
+                       f"xllcorner {xll}\n"
+                       f"yllcorner {yll}\n"
+                       f"cellsize {cell_size}\n"
+                       f"NODATA_value {nodata}\n").encode())
+
+    def write_rows(self, block):
+        from ..native import asc_format_native
+        block = np.asarray(block, np.float64)
+        if block.ndim == 1:
+            block = block[None, :]
+        self._rows_in += block.shape[0]
+        body = asc_format_native(block)
         if body is not None:
-            f.write(body)
+            self._f.write(body)
         else:
-            np.savetxt(f, data, fmt="%.6f")
+            np.savetxt(self._f, block, fmt="%.6f")
+
+    def close(self):
+        self._f.close()
+        if self._rows_in != self.height:
+            raise ValueError(f"wrote {self._rows_in} of {self.height} "
+                             "rows; refusing to emit a truncated grid")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.close()
+        else:
+            self._f.close()
+
+
+def _write_asc(path: Path, raster: Raster):
+    with AscStripWriter(path, raster.cols, raster.rows, xll=raster.xll,
+                        yll=raster.yll, cell_size=raster.cell_size,
+                        nodata=raster.nodata) as w:
+        w.write_rows(raster.data)
 
 
 # ------------------------------------------------------------- GeoTIFF ----

@@ -77,6 +77,14 @@ class LoadedModel:
     def simulation(self, *, device=None, mesh=None) -> Simulation:
         """The model's Simulation on ``device``, or on the blocks of
         ``mesh`` (a ``parallel.Mesh``), with its output writers."""
+        return Simulation(self.domain, self.config,
+                          boundaries=self.boundaries,
+                          output_writer=self.output_writer(),
+                          device=device, mesh=mesh)
+
+    def output_writer(self):
+        """The writer of the model's <dataTarget>s (None without any):
+        its rasters, then its gauge series."""
         writers = []
         rasters = [t for t in self.output_targets
                    if t.get("kind", "raster") == "raster"]
@@ -88,13 +96,10 @@ class LoadedModel:
                 writers.append(GaugeOutputWriter(
                     t["value"], read_gauge_map(t["source"]),
                     Path(self.target_dir) / t["target"], self.domain))
-        writer = None
-        if writers:
-            writer = (writers[0] if len(writers) == 1
-                      else CompositeOutputWriter(writers))
-        return Simulation(self.domain, self.config,
-                          boundaries=self.boundaries, output_writer=writer,
-                          device=device, mesh=mesh)
+        if not writers:
+            return None
+        return (writers[0] if len(writers) == 1
+                else CompositeOutputWriter(writers))
 
 
 def _params_of(el) -> dict:

@@ -46,6 +46,14 @@ to per-step GSPMD halos (ROADMAP.md section 3).
 Host reads: lock-step reads nothing; window mode reads one 0-d tensor per
 window, the ``violated`` predicate (and one more per re-run), as the
 JAX package's ``while_loop`` reads it on the device.
+
+Output events read the blocks in one of two ways.  The gathered path's
+``state``, ``static`` and ``comp`` assemble each plane's owned cells into
+one full-grid tensor on the first block's device.  The streamed path
+(runtime/sharded_io.py) assembles nothing: an ``OwnedPlane`` copies a row
+chunk of the grid to the host from the owned cells of each block the rows
+cross, samples cells on the blocks that own them, and ``owned`` gives the
+owned views a volume sums block by block.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..ops.boundaries import apply_boundaries, interior_force_mask
@@ -219,6 +228,25 @@ class HaloDeepBlocks:
         return self._assemble([b.comp for b in self.blocks])
 
     # ------------------------------------------------------------------
+    # Reads that assemble nothing (streamed output events).
+    def owned(self, name):
+        """[(block, view)]: the owned cells of plane ``name`` (a FlowState
+        or DomainStatic field, or "comp") in each block, as views."""
+        out = []
+        for b in self.blocks:
+            if name == "comp":
+                a = b.comp
+            elif name in FlowState._fields:
+                a = getattr(b.state, name)
+            else:
+                a = getattr(b.static, name)
+            out.append((b, a[b.interior]))
+        return out
+
+    def plane(self, name) -> "OwnedPlane":
+        return OwnedPlane(self, name)
+
+    # ------------------------------------------------------------------
     # The exchange.
     def _refresh(self, planes):
         """Refresh the halo strips of ``planes`` (one extended plane per
@@ -352,3 +380,45 @@ class HaloDeepBlocks:
             poison = s if poison is None else poison + s
         return carry._replace(batch_dt_total=carry.batch_dt_total
                               + 0.0 * poison)
+
+
+class OwnedPlane:
+    """One plane of a mesh run read through the blocks' owned cells, never
+    assembled: its grid ``shape``, its host ``dtype`` (numpy), rows copied
+    to the host (``host_rows``) and cells sampled (``host_cells``).  It
+    reads the blocks' planes when called, so it follows the run."""
+
+    def __init__(self, blocks: HaloDeepBlocks, name: str):
+        self._blocks = blocks
+        self._name = name
+        self.shape = blocks.logical
+        self.dtype = torch.empty(
+            (), dtype=blocks.owned(name)[0][1].dtype).numpy().dtype
+
+    def host_rows(self, r0: int, n: int) -> np.ndarray:
+        """Rows [r0, r0 + n) of the grid as one host array, each block's
+        part copied from its owned cells into its columns."""
+        out = np.empty((n, self.shape[1]), dtype=self.dtype)
+        for b, a in self._blocks.owned(self._name):
+            br0, bnr, bc0, bnc = b.own
+            lo, hi = max(r0, br0), min(r0 + n, br0 + bnr)
+            if lo < hi:
+                out[lo - r0:hi - r0, bc0:bc0 + bnc] = \
+                    a[lo - br0:hi - br0].cpu().numpy()
+        return out
+
+    def host_cells(self, rows, cols) -> np.ndarray:
+        """The (K,) values at cells (rows[k], cols[k]), each read on the
+        device of the block that owns it."""
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+        out = np.empty(rows.shape, dtype=self.dtype)
+        for b, a in self._blocks.owned(self._name):
+            br0, bnr, bc0, bnc = b.own
+            mine = ((rows >= br0) & (rows < br0 + bnr)
+                    & (cols >= bc0) & (cols < bc0 + bnc))
+            if mine.any():
+                ri = torch.as_tensor(rows[mine] - br0, device=a.device)
+                ci = torch.as_tensor(cols[mine] - bc0, device=a.device)
+                out[mine] = a[ri, ci].cpu().numpy()
+        return out

@@ -7,15 +7,21 @@ gathered branch): an .npz with a ``meta`` JSON string, the planes z, zmax,
 qx, qy, the compensated-f32 residue plane ``comp`` where the run has one,
 and the six StepCarry scalars under their field names, so a file written
 by either package resumes in the other (tests/test_torch_checkpoint.py).
-The port writes the members uncompressed (``np.savez``; the JAX package
-deflates them): on a wet 9.04 M-cell f32c state deflate saved 10% of
-the bytes for ~10 s per checkpoint on an H100 machine (PERF.md),
-and ``np.load`` reads either.
+The port writes the members uncompressed (stored, as ``np.savez`` does;
+the JAX package deflates them): on a wet 9.04 M-cell f32c state deflate
+saved 10% of the bytes for ~10 s per checkpoint on an H100 machine
+(PERF.md), and ``np.load`` reads either.
+
+Each plane is written in row chunks of the output event's snapshot
+(runtime/sharded_io.py ``StreamingCheckpointWriter``): a streamed
+snapshot's bounded chunks, so no plane is copied to the host whole, or a
+gathered snapshot's host copy as one chunk.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -45,23 +51,36 @@ def _meta(sim) -> dict:
 def save_checkpoint(path, sim, snapshot=None):
     """Write the simulation's resumable state to an .npz file.
 
-    ``snapshot`` (an output event's host copy) saves copying the state off
-    the device a second time when the caller has just made one; the comp
-    plane, which only a checkpoint reads, is copied here."""
+    ``snapshot`` is an output event's snapshot (runtime/simulation.py
+    ``output_view``), so the event's host copy, where it made one, is not
+    made twice; without one, the simulation's is taken.  Each plane
+    streams in row chunks of ``snapshot.chunk_rows`` into its stored
+    member, in the order ``np.savez`` would write them.  The file is
+    written beside ``path`` and renamed over it once whole, so a failed
+    save leaves the last checkpoint as it was."""
+    from .sharded_io import StreamingCheckpointWriter, host_dtype, stream_rows
+
     path = Path(path)
-    state = (snapshot.state_full if snapshot is not None
-             else FlowState(*(a.cpu().numpy() for a in sim.state)))
-    comp = sim.comp.cpu().numpy() if sim.comp is not None else None
-    arrays = dict(meta=json.dumps(_meta(sim)),
-                  z=state.z, zmax=state.zmax, qx=state.qx, qy=state.qy)
-    for name, value in sim.carry._asdict().items():
-        arrays[name] = value.cpu().numpy()
-    if comp is not None:
-        # Without the residue plane a resume would restart the rounding
-        # error from zero (harmless but inexact).
-        arrays["comp"] = comp
+    snap = snapshot if snapshot is not None else sim.output_view()
+
+    def stream(zw, name):
+        plane = snap.plane(name)
+        zw.stream_array(name, plane.shape, host_dtype(plane),
+                        (c for _, c in stream_rows(plane, snap.chunk_rows)))
+
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **arrays)
+    part = path.with_name(path.name + ".part")
+    with StreamingCheckpointWriter(part) as zw:
+        zw.add_array("meta", json.dumps(_meta(sim)))
+        for name in FlowState._fields:
+            stream(zw, name)
+        for name, value in sim.carry._asdict().items():
+            zw.add_array(name, value.cpu().numpy())
+        if sim.compensated:
+            # Without the residue plane a resume would restart the
+            # rounding error from zero (harmless but inexact).
+            stream(zw, "comp")
+    os.replace(part, path)
 
 
 def load_checkpoint(path, sim):

@@ -18,6 +18,16 @@ under ``sync_method="forecast"``, otherwise 1.  The state and comp
 properties then assemble the blocks' owned cells into one full-grid copy
 on the first block's device, and setting them scatters a full grid back
 into the blocks.
+
+An output event reads the state in one of two ways (``io_streaming``).
+Gathered, it copies each plane to the host once (``_OutputSnapshot``; under
+a mesh, the assembled copy).  Streamed (``io_mode="stream"``, or "auto" at
+``io_stream_cells`` cells and more), nothing is assembled: the planes stay
+on the device (``_StreamingSnapshot``, runtime/sharded_io.py), on one
+device and under a mesh alike.  Either snapshot is read the same way: the
+writers and the checkpoint read row chunks (the gathered copy is one
+chunk), the gauges a few cells, and the mass balance is a sum on the
+device.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ from ..ops.timestep import TimestepParams, advance
 from ..parallel.halo_deep import HaloDeepBlocks, halo_pads
 from ..parallel.mesh import Mesh, block_geometry
 from ..state import DomainStatic, FlowState, initial_carry
-from .output import domain_volume
+from . import sharded_io
 
 
 @dataclasses.dataclass
@@ -48,8 +58,7 @@ class SimulationConfig:
     """Run configuration (reference: <simulation> parameters,
     src/CModel.cpp:65-133, and per-scheme <parameter>s,
     src/Schemes/CSchemeGodunov.cpp:113-338).  Same fields and defaults as
-    the JAX package; the streaming fields are validated but their path is
-    not ported yet, and ``kernel_backend`` has no effect."""
+    the JAX package; ``kernel_backend`` has no effect."""
 
     scheme: str = "godunov"
     duration: float = 3600.0
@@ -77,17 +86,57 @@ class SimulationConfig:
                                         # per window, re-run on a broken
                                         # margin) | "step" (lock-step)
     forecast_dt_safety: float = 1.05    # frozen-speed inflation margin
-    io_mode: str = "auto"               # "gather" | "stream" | "auto"
+    io_mode: str = "auto"               # "gather" (a host copy of the
+                                        # grid per event) | "stream"
+                                        # (bounded row chunks) | "auto"
+                                        # (stream from io_stream_cells)
     io_stream_cells: int = 16_000_000   # auto threshold (cells)
-    io_chunk_mb: int = 64
+    io_chunk_mb: int = 64               # host budget per chunk set
 
 
-class _OutputSnapshot:
+class _Snapshot:
+    """What an output event's writers and checkpoint read, whichever way
+    it was taken: each plane (``plane``) as a source of row chunks of at
+    most ``chunk_rows`` rows, the grid's chunks (``stream_chunks``) and a
+    few cells (``sample_cells``).  The volume is the simulation's
+    (``Simulation.volume``, a sum on the device); every other attribute
+    is the simulation's too."""
+
+    def output_view(self):
+        return self
+
+    def stream_chunks(self, reverse=False):
+        """Yield (row0, FlowState, DomainStatic) of host arrays, row chunks
+        of the grid, south first (north first with ``reverse=True``)."""
+        planes = [self.plane(n)
+                  for n in FlowState._fields + DomainStatic._fields]
+        rows = self._sim.domain.rows
+        for r0 in sharded_io.chunk_starts(rows, self.chunk_rows, reverse):
+            n = min(self.chunk_rows, rows - r0)
+            arrs = [sharded_io.host_rows(p, r0, n) for p in planes]
+            yield r0, FlowState(*arrs[:4]), DomainStatic(*arrs[4:])
+
+    def sample_cells(self, rows, cols):
+        """(FlowState, DomainStatic) of the cells (rows[k], cols[k]) as (K,)
+        host arrays."""
+        vals = [sharded_io.host_cells(self.plane(n), rows, cols)
+                for n in FlowState._fields + DomainStatic._fields]
+        return FlowState(*vals[:4]), DomainStatic(*vals[4:])
+
+    def __getattr__(self, name):
+        if name == "_sim":
+            raise AttributeError(name)
+        return getattr(self._sim, name)
+
+
+class _OutputSnapshot(_Snapshot):
     """One output event's host copy of the state and the static fields,
     shared by the writers and the checkpoint, so an event copies the state
-    off the device once (under a mesh, one assembled copy); every other
-    attribute is the simulation's.  The grid is never padded, so the full
-    and the logical arrays are the same."""
+    off the device once (under a mesh, one assembled copy), and read as
+    one chunk.  The grid is never padded, so the full and the logical
+    arrays are the same."""
+
+    streaming = False
 
     def __init__(self, sim: "Simulation"):
         self._sim = sim
@@ -95,11 +144,63 @@ class _OutputSnapshot:
         self.state_full = FlowState(*(a.cpu().numpy() for a in sim.state))
         self.state_logical = self.state_full
         self.static_logical = sim.static_logical
+        self.chunk_rows = sim.domain.rows
+
+    def plane(self, name):
+        """Plane ``name`` (a FlowState or DomainStatic field, or "comp") as
+        a host array; the comp plane, which only a checkpoint reads, is
+        copied when asked for."""
+        if name == "comp":
+            return self._sim.comp.cpu().numpy()
+        if name in FlowState._fields:
+            return getattr(self.state_full, name)
+        return getattr(self.static_logical, name)
+
+
+class _StreamingSnapshot(_Snapshot):
+    """One output event's bounded-memory view: no plane is copied to the
+    host whole, or assembled on a device.  Row chunks of at most
+    ``chunk_rows`` rows go to the host, and sampled cells are indexed on
+    the device with only their values copied.  The full-grid attributes
+    of the gathered snapshot raise."""
+
+    streaming = True
+
+    def __init__(self, sim: "Simulation"):
+        self._sim = sim
+        # Six planes move per chunk set (4 state + 2 static).
+        self.chunk_rows = sharded_io.chunk_rows_for(
+            sim.domain.cols, n_fields=6, budget_mb=sim.config.io_chunk_mb)
+
+    def plane(self, name):
+        """Plane ``name`` (a FlowState or DomainStatic field, or "comp")
+        as a source of row chunks: the tensor on one device, an
+        ``OwnedPlane`` under a mesh."""
+        sim = self._sim
+        if sim._blocks is not None:
+            return sim._blocks.plane(name)
+        if name == "comp":
+            return sim._comp
+        if name in FlowState._fields:
+            return getattr(sim._state, name)
+        return getattr(sim._static, name)
 
     def __getattr__(self, name):
-        if name == "_sim":
-            raise AttributeError(name)
-        return getattr(self._sim, name)
+        if name in ("state_logical", "static_logical", "state_full",
+                    "static_full", "comp_full"):
+            raise AttributeError(
+                f"{name} is unavailable on a streaming output snapshot "
+                "(io_mode='stream'): it would copy the full grid to the "
+                "host. Use stream_chunks(), sample_cells() or volume(), "
+                "or set io_mode='gather'.")
+        return super().__getattr__(name)
+
+
+def _wet_sum(z, zmax, zb):
+    """Sum of max(z - zb, 0) in float64 over the cells whose zmax is not
+    NODATA, on the planes' device (a 0-d tensor)."""
+    h = (z.double() - zb.double()).clamp_min(0.0)
+    return h.masked_fill(zmax <= C.NODATA, 0.0).sum()
 
 
 class Simulation:
@@ -118,14 +219,6 @@ class Simulation:
         if config.forecast_dt_safety < 1.0:
             raise ValueError("forecast_dt_safety must be >= 1.0 "
                              f"(got {config.forecast_dt_safety})")
-        if config.io_mode == "stream" or (
-                config.io_mode == "auto"
-                and domain.cell_count >= config.io_stream_cells):
-            raise NotImplementedError(
-                f"streamed output I/O (io_mode={config.io_mode!r}, "
-                f"{domain.cell_count} cells, auto threshold "
-                f"{config.io_stream_cells}) is not ported yet; use "
-                "io_mode='gather' (ROADMAP.md, queue 1)")
         if mesh is not None:
             # The carry and the assembled state live on the first block's
             # device.
@@ -368,12 +461,26 @@ class Simulation:
         self._batch_size = max(8, size)
 
     # ------------------------------------------------------------------
+    def io_streaming(self) -> bool:
+        """True when output events take the bounded-memory streamed path
+        (runtime/sharded_io.py) instead of a host copy of the grid."""
+        mode = self.config.io_mode
+        if mode in ("stream", "gather"):
+            return mode == "stream"
+        return self.domain.cell_count >= self.config.io_stream_cells
+
+    def output_view(self) -> _Snapshot:
+        """A snapshot of the run for an output event: the streamed view,
+        or a host copy of the state (``io_streaming``)."""
+        return (_StreamingSnapshot(self) if self.io_streaming()
+                else _OutputSnapshot(self))
+
     def emit_output(self, t: float):
-        """One output event: copy the state to the host once, write the
+        """One output event: take a snapshot (``output_view``), write the
         checkpoint (when checkpoint_path is set) and run the writers."""
         if self.output_writer is None and self.checkpoint_path is None:
             return
-        snap = _OutputSnapshot(self)
+        snap = self.output_view()
         if self.checkpoint_path is not None:
             from .checkpoint import save_checkpoint
             save_checkpoint(self.checkpoint_path, self, snapshot=snap)
@@ -424,4 +531,17 @@ class Simulation:
         return np.maximum(h, 0.0)
 
     def volume(self) -> float:
-        return domain_volume(self, self.domain)
+        """The domain's water volume [m^3] (reference: the per-domain
+        volume sum, src/Domain/Cartesian/CDomainCartesian.cpp:743-760),
+        summed in float64 on the device(s), so no output event copies a
+        plane for it; under a mesh, each block's owned cells, then the
+        blocks."""
+        if self._blocks is None:
+            total = float(_wet_sum(self._state.z, self._state.zmax,
+                                   self._static.zb))
+        else:
+            parts = zip(*(self._blocks.owned(n) for n in ("z", "zmax",
+                                                          "zb")))
+            total = sum(float(_wet_sum(z, zmax, zb))
+                        for (_, z), (_, zmax), (_, zb) in parts)
+        return total * self.domain.dx * self.domain.dy

@@ -106,6 +106,99 @@ def test_radar_path_on_cpu(tmp_path):
     assert checkpoint.save_checkpoint.__module__ == checkpoint.__name__
 
 
+def test_streamed_radar_path_on_cpu(tmp_path):
+    """Phase 4i's runs and checks at 96x128 and 60 s with --io-mode stream
+    (the card's 16.78 M cells stream by default): runs A and B stream
+    every output event, run G gathers, A's rasters and gauge CSV are G's
+    bytes and B resumes bit-equal to A (both checked inside); each
+    streamed event is timed by part and records its largest chunk set."""
+    from hipims_tpu_torch.runtime import sharded_io, simulation
+
+    res = chip_smoke.run_radar_path(tmp_path, "cpu", 96, 128, 60.0, 30.0,
+                                    interval=20.0, rain_cell=50.0,
+                                    mass_tol=0.05, io_mode="stream",
+                                    gather_run=True)
+    streamed = {"snapshot", "chunks", "raster", "gauge", "volume",
+                "chunk_set_bytes"}
+    assert [set(e) for e in res["events_a"]] == \
+        [streamed | {"checkpoint"}] * 2
+    assert [set(e) for e in res["events_b"]] == [streamed]
+    assert [set(e) for e in res["events_g"]] == [{"copy", "raster",
+                                                  "gauge"}] * 2
+    # 96 rows under the default 64 MiB budget: one chunk set of the grid.
+    assert res["events_a"][0]["chunk_set_bytes"] == 96 * 128 * 4 * 6
+    assert abs(res["rel"]) < 0.05
+    assert "largest chunk set 0.28 MiB" in chip_smoke.format_events(
+        res["events_a"])
+    # The timing patches are undone.
+    assert sharded_io.host_rows.__module__ == sharded_io.__name__
+    assert simulation._StreamingSnapshot.stream_chunks.__name__ == \
+        "stream_chunks"
+
+
+def test_mesh_stream_path_on_cpu(tmp_path):
+    """Phase 5g on CPU blocks: a 2x2 mesh run in forecast windows with
+    io_mode "stream" and the default (wall-clock) batches writes, at every
+    event, the rasters, gauge CSV and checkpoint members of a gathered
+    snapshot of the same state (checked inside)."""
+    res = chip_smoke.run_mesh_stream_path(tmp_path, "cpu", 48, 48, 20.0,
+                                          10.0, interval=10.0)
+    assert res["steps"] > 0 and res["window"] > 1
+    assert not any(res["launches"].values())
+    assert (tmp_path / "output_b" / "depth_20.tif").is_file()
+    assert (tmp_path / "output" / "depth_20.tif").read_bytes() == \
+        (tmp_path / "output_b" / "depth_20.tif").read_bytes()
+
+
+def test_mesh_stream_path_names_the_members_that_differ(tmp_path,
+                                                        monkeypatch):
+    """A streamed mesh checkpoint that differs from the gathered one
+    fails phase 5g with the member's name and its max|diff|."""
+    from hipims_tpu_torch.runtime import sharded_io
+
+    host_rows = sharded_io.host_rows
+
+    def off_by_one_zmax(plane, r0, n):
+        out = host_rows(plane, r0, n)
+        return out + 1.0 if getattr(plane, "_name", None) == "zmax" else out
+
+    monkeypatch.setattr(sharded_io, "host_rows", off_by_one_zmax)
+    with pytest.raises(RuntimeError, match=r"'zmax': 1\.0"):
+        chip_smoke.run_mesh_stream_path(tmp_path, "cpu", 48, 48, 20.0,
+                                        10.0, interval=10.0)
+
+
+def test_mesh_batches_change_only_the_idle_counter(tmp_path):
+    """Two separate runs of phase 5g's mesh model in batches of 8 and 16
+    windows (a streamed and a gathered run) write the same planes, clock
+    and step count; their checkpoints differ in ``batch_skipped`` alone,
+    the idle steps a batch runs past an output time.  Wall-clock batches
+    make two runs' counters differ in this way, so phase 5g compares the
+    streamed and gathered snapshots of one run."""
+    import torch
+
+    from hipims_tpu_torch.io.xml_config import load_config
+    from hipims_tpu_torch.parallel import make_mesh
+
+    xml = chip_smoke.write_radar_model(tmp_path, 48, 48, 20.0, 10.0,
+                                       interval=10.0, rain_cell=50.0)
+    for mode, batch in (("stream", 8), ("gather", 16)):
+        model = load_config(xml)
+        cfg = model.config
+        cfg.io_mode, cfg.batch_auto, cfg.batch_size = mode, False, batch
+        sim = model.simulation(mesh=make_mesh(
+            4, shape=(2, 2), devices=[torch.device("cpu")] * 4))
+        assert sim.window > 1
+        sim.checkpoint_path = tmp_path / f"{mode}.npz"
+        sim.run()
+    with np.load(tmp_path / "stream.npz") as a, \
+            np.load(tmp_path / "gather.npz") as b:
+        assert a.files == b.files
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        assert differ == ["batch_skipped"]
+        assert int(a["batch_skipped"]) < int(b["batch_skipped"])
+
+
 def test_radar_model_loads_as_two_bands(tmp_path):
     """The radar model is a decomposed model: two <domain> row bands of
     HFA DEMs overlapping by 4 rows each side, stitched into one grid,

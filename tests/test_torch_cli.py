@@ -114,14 +114,27 @@ def test_reference_command_line_runs(tmp_path, capsys):
         np.testing.assert_allclose(got, jax, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("argv", [["--distributed", "env"],
-                                  ["--io-mode", "stream"]])
+@pytest.mark.parametrize("argv", [["--distributed", "env"]])
 def test_unported_flags_exit_1(tmp_path, argv, capsys):
     build_dam_break(tmp_path)
     rc = torch_main(["-c", str(tmp_path / "dam-break.xml"), "--platform",
                      "cpu"] + argv)
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_io_mode_stream_equals_gather(tmp_path):
+    """--io-mode stream exits 0 and writes every raster (4 targets x 4
+    events) byte-equal to --io-mode gather's."""
+    out = {}
+    for mode in ("gather", "stream"):
+        build_dam_break(tmp_path / mode, duration=20.0)
+        assert torch_main(["-c", str(tmp_path / mode / "dam-break.xml"),
+                           "-q", "--platform", "cpu", "--io-mode",
+                           mode]) == 0
+        out[mode] = {p.name: p.read_bytes()
+                     for p in (tmp_path / mode / "output").iterdir()}
+    assert len(out["gather"]) == 16 and out["gather"] == out["stream"]
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "2"], ["--mesh-shape", "2x1"],

@@ -387,3 +387,100 @@ def test_k4_nan_manning_stays_out_of_the_max_speed(mode):
     _assert_bit_equal_nan(got, want)
     assert torch.isnan(got[0].z[r, c]) and torch.isnan(want[0].z[r, c])
     assert not torch.isnan(got[1]) and not torch.isnan(want[1])
+
+
+# ---------------------------------------------------------------------------
+# Streamed output I/O on the card (runtime/sharded_io.py).
+
+def _stream_sim(io_mode, mesh_shape, writer_dir):
+    """A circular dam at 61 x 67 in f32c on the card (on a lock-step mesh
+    of ``mesh_shape`` blocks sharing it), 8-row chunks, with depth (TIFF),
+    fsl (ASC) and maxdepth (HFA) rasters and depth gauges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from hipims_tpu_torch.domain import Domain
+    from hipims_tpu_torch.parallel import make_mesh
+    from hipims_tpu_torch.runtime import Simulation, SimulationConfig
+    from hipims_tpu_torch.runtime import output as out
+
+    rows, cols = 61, 67
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    dom = Domain(zb=0.3 * np.sin(yy / 5.0) * np.cos(xx / 7.0),
+                 manning=0.02, dx=2.0, dy=2.0)
+    dom.set_initial_depth(np.where(
+        np.hypot(yy - rows / 2, xx - cols / 2) * 2.0 <= rows / 2.5, 1.5,
+        0.1))
+    cfg = SimulationConfig(duration=8.0, output_frequency=4.0,
+                           dtype="float32c", batch_size=8, batch_auto=False,
+                           io_mode=io_mode, io_chunk_mb=0)
+    mesh = None if mesh_shape is None else make_mesh(shape=mesh_shape)
+    sim = Simulation(dom, cfg, device=None if mesh else "cuda", mesh=mesh)
+    sim.output_writer = out.CompositeOutputWriter([
+        out.RasterOutputWriter(
+            [dict(value="depth", format="tif", target="depth_%t.tif"),
+             dict(value="fsl", format="asc", target="fsl_%t.asc"),
+             dict(value="maxdepth", format="hfa", target="md_%t.img")],
+            str(writer_dir), dom),
+        out.GaugeOutputWriter("depth", [(40.0, 40.0, "G1"),
+                                        (96.0, 100.0, "G2")],
+                              writer_dir / "gauges.csv", dom)])
+    sim.checkpoint_path = writer_dir / "ck.npz"
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)])
+def test_streamed_outputs_equal_gathered_on_card(tmp_path, mesh_shape):
+    """On CUDA tensors, with and without a 2x2 mesh: the streamed rasters
+    (TIFF, ASC, HFA) and gauge CSV are the gathered run's bytes, the
+    checkpoints' members are equal, and the volumes, float64 sums on the
+    card, equal the float64 host sum of the state (rel 1e-12)."""
+    files, volumes = {}, {}
+    for mode in ("gather", "stream"):
+        sim = _stream_sim(mode, mesh_shape, tmp_path / mode)
+        sim.run()
+        volumes[mode] = sim.volume()
+        st, zb = sim.state_logical, sim.static_logical.zb
+        h = np.maximum(st.z.astype(np.float64) - zb, 0.0)
+        h[st.zmax <= -9999.0] = 0.0
+        assert volumes[mode] == pytest.approx(
+            h.sum() * sim.domain.dx * sim.domain.dy, rel=1e-12)
+        files[mode] = {p.name: p.read_bytes()
+                       for p in (tmp_path / mode).iterdir()
+                       if p.suffix != ".npz"}
+    assert len(files["gather"]) == 7 and files["gather"] == files["stream"]
+    with np.load(tmp_path / "gather" / "ck.npz") as g, \
+            np.load(tmp_path / "stream" / "ck.npz") as s:
+        assert g.files == s.files and "comp" in s.files
+        for k in g.files:
+            np.testing.assert_array_equal(g[k], s[k], err_msg=k)
+    assert volumes["stream"] == pytest.approx(volumes["gather"], rel=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)])
+def test_chunk_copies_read_cuda_planes(tmp_path, mesh_shape):
+    """A streamed snapshot's chunks come from the CUDA planes (a tensor,
+    or a mesh's blocks) and re-assemble to them; sampled cells equal the
+    planes' values."""
+    from hipims_tpu_torch.runtime import sharded_io as sio
+    from hipims_tpu_torch.runtime.simulation import _StreamingSnapshot
+
+    sim = _stream_sim("stream", mesh_shape, tmp_path)
+    sim.run_to(4.0)
+    snap = _StreamingSnapshot(sim)
+    plane = snap.plane("z")
+    if mesh_shape is None:
+        assert plane.is_cuda
+    else:
+        assert all(a.is_cuda for _, a in sim._blocks.owned("z"))
+    want = sim.state.z.cpu().numpy()
+    for reverse in (False, True):
+        got = np.full_like(want, np.nan)
+        for r0, chunk in sio.stream_rows(plane, 8, reverse=reverse):
+            assert isinstance(chunk, np.ndarray) and chunk.shape[0] <= 8
+            got[r0:r0 + chunk.shape[0]] = chunk
+        np.testing.assert_array_equal(got, want)
+    rows, cols = [3, 30, 31, 60], [0, 33, 34, 66]
+    np.testing.assert_array_equal(sio.host_cells(plane, rows, cols),
+                                  want[rows, cols])

@@ -145,11 +145,22 @@ def test_stall_raises():
         sim.run_to(10.0)
 
 
+@pytest.mark.parametrize("kw,streaming", [
+    (dict(), False),
+    (dict(io_mode="stream"), True),
+    (dict(io_mode="auto", io_stream_cells=100), True),
+    (dict(io_mode="gather", io_stream_cells=100), False),
+])
+def test_io_streaming_selection(kw, streaming):
+    """io_mode picks the output path as the JAX package's io_streaming
+    does: "auto" streams from io_stream_cells cells (the grid has 960)."""
+    _, pd = _domains()
+    sim = Simulation(pd, SimulationConfig(**kw), device="cpu")
+    assert sim.io_streaming() is streaming
+
+
 @pytest.mark.parametrize("kw,err", [
     (dict(mesh=object()), TypeError),
-    (dict(config=SimulationConfig(io_mode="stream")), NotImplementedError),
-    (dict(config=SimulationConfig(io_mode="auto", io_stream_cells=100)),
-     NotImplementedError),
     (dict(config=SimulationConfig(scheme="no-such-scheme")), ValueError),
     (dict(config=SimulationConfig(forecast_dt_safety=0.5)), ValueError),
     # Blocks of one column leave no room for a step's two halo cells.
