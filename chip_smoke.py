@@ -95,6 +95,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    mass balance within 1% of the frames' rain minus the loss, and the
    mean and max |depth - 4f run A's 300 s depth| within the JAX package's
    window-mode bars (mean 0.03 m, max 0.3 m: tests/test_sharding.py);
+3e. K1 and the split12 pair K2 + K3 in float64 at 256x256 against the
+   port's numpy oracles (ops/oracle.py, ops/oracle_muscl.py: per-cell
+   transcriptions of the reference, a second reference beside the plain
+   versions), to 1e-12; prints the max difference;
+4j. the multi-process slice: the phase-4 model for 300 s (output at 300
+   s, ``syncMethod="timestep"``) through the CLI as two ranks of one
+   torch.distributed cluster (gloo), each a process of this script
+   (``--rank-worker``) sharing the card, ``--mesh-shape 2x1`` (one block
+   a rank, strips and maxima staged through the host) with
+   ``--checkpoint``: the depth and maxdepth rasters at 300 s byte-equal
+   to phase 4's, exactly one set of files and one whole checkpoint (t =
+   300, no ``.part``), both ranks at the same t, steps and idle steps,
+   their K1 launches summing to 2 x (steps + idle), the mass balance
+   within phase 4's bar; prints the run time per step beside 4's and
+   4g's;
 5. the first slice whole: the phase-4 model at 128x128 and 120 s, in
    float64 ("double-strict"), on the card and on the CPU (plain
    versions); the final fields must agree within the f32c bounds; 5b: the
@@ -106,16 +121,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    5g: phase 4f's model at 128x128 as a 2x2 mesh on the card, io_mode
    "stream", each event also written from a gathered snapshot of the same
    state: rasters, gauge CSV and checkpoint members equal, 4 K1 launches
-   per step and re-run step.
+   per step and re-run step; 5h: 5g's model (f32c, streamed) as a 2x2
+   mesh in forecast windows over two ranks (two blocks each) through the
+   CLI, against the same command in one process: rasters, gauge CSV,
+   every checkpoint member and the re-run counts equal.  Both take fixed
+   batches of 8 windows (the scheme's queueSize), since each batch seeds
+   its first frozen-speed window afresh (ROADMAP.md section 3) and two
+   runs sized by their own clocks cannot be compared bit for bit.
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
    tests/test_torch_cli.py.)
 
 The line before the last is a JSON record of the seven kernels (with
-each kernel's launches in the mesh phases 4g, 4h, 5f and 5g); the last line
-is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside this file, it prints no result and exits with status 2.
+each kernel's launches in the mesh phases 4g, 4h, 4j, 5f, 5g and 5h); the
+last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+the package beside this file, it prints no result and exits with status
+2.  ``chip_smoke.py --rank-worker RANK ADDR:PORT CLI-ARGS...`` is one rank
+of phases 4j and 5h (``run_ranks``).
 Terrain and inputs are made from fixed seeds; nothing is downloaded.
 """
 
@@ -125,8 +148,10 @@ import contextlib
 import datetime as _dt
 import io
 import json
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1384,6 +1409,213 @@ def run_mesh_stream_path(root, device, rows, cols, duration, outfreq,
     return res
 
 
+def phase_oracle(torch, device, rows=256, cols=256):
+    """Phase 3e: K1 and K2 + K3 (split12) in float64 on the card against
+    the port's numpy oracles on the random domain; returns the max
+    |difference| of each, held to TOL["f64"]."""
+    from hipims_tpu_torch.ops.godunov import SchemeParams
+    from hipims_tpu_torch.ops.kernels import muscl_split, stencil
+    from hipims_tpu_torch.ops.oracle import godunov_step_oracle
+    from hipims_tpu_torch.ops.oracle_muscl import muscl_step_oracle
+    from hipims_tpu_torch.state import DomainStatic, FlowState
+
+    arrs = random_domain(3, rows, cols)
+    t = [torch.as_tensor(a, device=device) for a in arrs]
+    state, static = FlowState(*t[:4]), DomainStatic(*t[4:])
+    dt = torch.tensor(0.05, dtype=torch.float64, device=device)
+    params = SchemeParams(2.0, 2.0)
+    out = {}
+    for name, got, oracle in (
+            ("K1", stencil.stencil_step("godunov", state, static, dt,
+                                        params)[0], godunov_step_oracle),
+            ("K2 + K3", muscl_split.muscl_step_split(
+                state, static, dt, params, "split12")[0],
+             muscl_step_oracle)):
+        want = oracle(*arrs, 0.05, 2.0, 2.0)
+        excess, diff = _excess(torch.stack(list(got)).cpu(),
+                               torch.as_tensor(np.stack(want)),
+                               *TOL["f64"])
+        if excess > 0.0:
+            raise RuntimeError(f"3e: {name} differs from the numpy oracle "
+                               f"by {diff:.3e}")
+        out[name] = diff
+    return out
+
+
+def rank_worker(argv):
+    """One rank of phases 4j and 5h: ``chip_smoke.py --rank-worker RANK
+    ADDR:PORT CLI-ARGS...`` runs the CLI in this process with
+    ``--distributed ADDR:PORT,2,RANK`` and prints its output, then one
+    line ``RANK_RESULT {json}``: this rank's kernel launches during the
+    CLI's run, its final carry (t, steps, idle steps), its windows re-run
+    and the CLI's wall seconds.  Returns the CLI's status."""
+    from hipims_tpu_torch.cli import main as cli_main
+    from hipims_tpu_torch.runtime import simulation
+
+    rank, coord, *args = argv
+    sims = []
+    run = simulation.Simulation.run
+
+    def recorded_run(self, progress=None):
+        sims.append(self)
+        return run(self, progress)
+
+    simulation.Simulation.run = recorded_run
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main([*args, "--distributed", f"{coord},2,{rank}"])
+    wall = time.perf_counter() - t0
+    res = dict(rank=int(rank), rc=rc, wall_s=wall,
+               launches=_read_launches())
+    if sims:
+        sim = sims[-1]
+        res.update(t=sim.t, steps=sim.total_steps, idle=sim.total_skipped,
+                   reruns=sim.window_reruns, window=sim.window)
+    print("RANK_RESULT " + json.dumps(res), flush=True)
+    return rc
+
+
+def run_ranks(label, args, timeout):
+    """Run the CLI with ``args`` as the two ranks of one cluster, each a
+    process of this script (``rank_worker``) on the one card, the
+    rendezvous on a free port of this host.  Raises if a rank fails or
+    outlives ``timeout`` seconds (every rank is killed then).  Returns
+    [(result, output)] by rank."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker",
+         str(r), f"127.0.0.1:{port}", *map(str, args)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"{label}: rank {r} exited {p.returncode}:\n"
+                               f"{out[-4000:]}")
+        res.append((json.loads(lines[-1][len("RANK_RESULT "):]), out))
+    return res
+
+
+def run_ranks_main_path(root, rows, cols, duration, ref_root,
+                        device="gpu", mass_tol=MASS_BALANCE_REL):
+    """Phase 4j: the phase-4 model, lock-step, through the CLI on two
+    ranks with ``--mesh-shape 2x1`` and ``--checkpoint`` on ``device``
+    ("gpu" or "cpu"); checks the rasters against ``ref_root``'s (phase 4)
+    byte for byte, the files, the checkpoint, the ranks' agreement and
+    the mass balance.  Returns what it measured, with each rank's
+    result under "ranks"."""
+    from hipims_tpu_torch.models import get_scheme
+
+    root = Path(root)
+    xml = write_glasgow_model(root, rows, cols, duration, duration,
+                              sync="timestep")
+    ck = root / "run.npz"
+    t0 = time.perf_counter()
+    ranks = run_ranks("phase 4j", ["-c", xml, "-n", "--mass-balance",
+                                   "--platform", device, "--mesh-shape",
+                                   "2x1", "--checkpoint", ck], 600)
+    wall = time.perf_counter() - t0
+    (r0, log), (r1, _) = ranks
+    if (r1["t"], r1["steps"], r1["idle"]) != (r0["t"], r0["steps"],
+                                              r0["idle"]):
+        raise RuntimeError(f"4j: the ranks disagree: {r0} / {r1}")
+    label = f"{duration:g}"
+    files = sorted(p.name for p in (root / "output").iterdir())
+    if files != [f"depth_{label}.tif", f"maxdepth_{label}.tif"]:
+        raise RuntimeError(f"4j: output files {files}")
+    for name in files:
+        a = (root / "output" / name).read_bytes()
+        if a != (Path(ref_root) / "output" / name).read_bytes():
+            raise RuntimeError(f"4j: {name} is not phase 4's bytes")
+    if sorted(p.name for p in root.glob("run.npz*")) != ["run.npz"]:
+        raise RuntimeError(f"4j: checkpoint files "
+                           f"{sorted(root.glob('run.npz*'))}")
+    with np.load(ck) as data:
+        members = {k: data[k] for k in data.files}
+    if float(members["t"]) != duration or members["z"].shape != (rows, cols):
+        raise RuntimeError(f"4j: checkpoint t={members['t']}, z "
+                           f"{members['z'].shape}")
+    vols = [float(v) for v in re.findall(r"volume=([0-9.eE+-]+) m3", log)]
+    run_s = float(re.search(r"Simulated:.* in ([0-9.]+) s wall",
+                            log).group(1))
+    expected = _forced_volume(rows, cols, get_scheme("godunov").radius,
+                              duration)
+    rel = (vols[-1] - expected) / expected
+    if abs(rel) > mass_tol:
+        raise RuntimeError(f"4j: mass balance off by {rel:+.4%}")
+    return dict(steps=r0["steps"], idle=r0["idle"], rel=rel, run_s=run_s,
+                wall_s=wall, rank_walls=[r0["wall_s"], r1["wall_s"]],
+                ranks=[r0, r1],
+                launches={n: r0["launches"][n] + r1["launches"][n]
+                          for n in r0["launches"]},
+                members=sorted(members), checkpoint_mb=ck.stat().st_size
+                / 2 ** 20)
+
+
+def run_ranks_stream_path(root, rows, cols, duration, outfreq,
+                          interval=60.0, rain_cell=50.0, device="gpu"):
+    """Phase 5h: phase 5g's model (streamed, a 2x2 mesh in forecast
+    windows, fixed batches of 8 windows) through the CLI on two ranks
+    into output/, and in one process into output_b/, each with a
+    checkpoint; rasters, gauge CSV, checkpoint members and re-runs must
+    be equal.  Returns what it measured."""
+    root = Path(root)
+    xml = write_radar_model(root, rows, cols, duration, outfreq,
+                            interval=interval, rain_cell=rain_cell)
+    for x in (xml, root / "model_b.xml"):
+        x.write_text(x.read_text().replace(
+            '<parameter name="courantNumber" value="0.5" />',
+            '<parameter name="courantNumber" value="0.5" />\n'
+            '          <parameter name="queueSize" value="8" />'))
+    args = ["--platform", device, "--mesh-shape", "2x2", "--io-mode",
+            "stream"]
+    one = _run_cli(root / "model_b.xml", device, "--mesh-shape", "2x2",
+                   "--io-mode", "stream", "--checkpoint",
+                   str(root / "one.npz"))
+    one_reruns = int(re.search(r"Windows re-run: (\d+)", one["log"])
+                     .group(1))
+    ranks = run_ranks("phase 5h", ["-c", xml, "-n", *args, "--checkpoint",
+                                   root / "two.npz"], 300)
+    (r0, _), (r1, _) = ranks
+    if not (r0["reruns"] == r1["reruns"] == one_reruns
+            and r0["steps"] == r1["steps"] == one["steps"]
+            and r0["idle"] == r1["idle"] == one["idle"]):
+        raise RuntimeError(f"5h: ranks {r0} / {r1} against one process: "
+                           f"{one['steps']} steps, {one['idle']} idle, "
+                           f"{one_reruns} re-runs")
+    g, s = ({p.name: p.read_bytes() for p in (root / d).iterdir()}
+            for d in ("output", "output_b"))
+    if len(g) != int(round(duration / outfreq)) + 1 or g != s:
+        raise RuntimeError(f"5h: two ranks' outputs {sorted(g)} are not the "
+                           f"one process's bytes {sorted(s)}")
+    with np.load(root / "two.npz") as a, np.load(root / "one.npz") as b:
+        differ = {k: _max_diff(a[k], b[k]) for k in b.files
+                  if k not in a.files or not np.array_equal(a[k], b[k])}
+        if a.files != b.files or differ:
+            raise RuntimeError(f"5h: checkpoint members differ: {differ}")
+        members = a.files
+    return dict(steps=r0["steps"], idle=r0["idle"], reruns=one_reruns,
+                window=r0["window"], members=members,
+                launches={n: r0["launches"][n] + r1["launches"][n]
+                          for n in r0["launches"]},
+                one_launches=one["launches"])
+
+
 def _max_diff(a, b):
     """max|a - b| of two checkpoint members, or their values where they
     are not numbers."""
@@ -1504,6 +1736,11 @@ def kernels_record(times, err, launches, cells, share, mesh_launches):
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank-worker":
+        # One rank of phases 4j and 5h; its CLI arguments name the
+        # platform (the CPU tests rehearse it there).
+        sys.path.insert(0, str(ROOT))
+        return rank_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
@@ -1555,6 +1792,15 @@ def main() -> int:
     mesh_err, _ = phase_mesh_vs_plain(torch, device, times)
     for name, e in mesh_err.items():
         err[name] = max(err[name], e)
+    # Phase 3e: K1 and K2 + K3 against the numpy oracles (comparisons, not
+    # a main path's launches).
+    t0 = time.perf_counter()
+    oracle_diff = phase_oracle(torch, device)
+    print("phase 3e: float64 256x256 against the port's numpy oracles: "
+          + ", ".join(f"{k} max|diff| {v:.3e}" for k, v in
+                      oracle_diff.items())
+          + f" (bar {TOL['f64'][1]:g}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     rows, cols = CASES[-1][:2]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1730,6 +1976,31 @@ def main() -> int:
               f"chunk set {budget / 2 ** 20:g} MiB); phase 4i wall "
               f"{time.perf_counter() - t_4i:.1f} s", flush=True)
 
+        # Phase 4j: phase 4's model on two ranks, one 2x1 block each.
+        res_j = run_ranks_main_path(Path(tmp) / "ranks", rows, cols, 300.0,
+                                    ref_root=Path(tmp) / "main")
+        for r in res_j["ranks"]:
+            _expect_launches(f"phase 4j rank {r['rank']}", r["launches"], {
+                "godunov_fused": res_j["steps"] + res_j["idle"]})
+        for n, c in res_j["launches"].items():
+            mesh_launches[n] += c
+        per_step = {label: r["run_s"] / (r["steps"] + r["idle"]) * 1e3
+                    for label, r in (("4j", res_j), ("4", res),
+                                     ("4g", res_g))}
+        print(f"phase 4j: main path on two ranks (gloo, --mesh-shape 2x1, "
+              f"one card) {rows}x{cols} f32c, 300 s simulated: "
+              f"{res_j['steps']} steps (+{res_j['idle']} idle) on both "
+              f"ranks, rasters at 300 s byte-equal to phase 4's, one "
+              f"checkpoint ({res_j['checkpoint_mb']:.1f} MiB, t=300, "
+              f"{len(res_j['members'])} members); mass balance "
+              f"{res_j['rel']:+.4%}; run with outputs {res_j['run_s']:.1f} "
+              f"s, ranks' CLI walls "
+              + " / ".join(f"{w:.1f}" for w in res_j["rank_walls"])
+              + f" s, phase wall {res_j['wall_s']:.1f} s; run per step "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in per_step.items())
+              + f"; launches: godunov_fused "
+              f"{res_j['launches']['godunov_fused']}; on {smi}", flush=True)
+
         # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
         # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
         slices = [(label, scheme, write_glasgow_model(
@@ -1775,6 +2046,24 @@ def main() -> int:
               f"(+{res_5g['idle']} idle), window {res_5g['window']}, "
               f"{res_5g['reruns']} re-runs, launches: godunov_fused "
               f"{res_5g['launches']['godunov_fused']}", flush=True)
+        res_5h = run_ranks_stream_path(Path(tmp) / "ranks_stream", 128, 128,
+                                       120.0, 60.0)
+        for n, c in res_5h["launches"].items():
+            mesh_launches[n] += c
+        for label, launches in (("5h ranks", res_5h["launches"]),
+                                ("5h one process", res_5h["one_launches"])):
+            _expect_launches(f"phase {label}", launches, {
+                "godunov_fused": 4 * (res_5h["steps"] + res_5h["idle"]
+                                      + res_5h["window"]
+                                      * res_5h["reruns"])})
+        print(f"phase 5h: radar model 128x128 f32c streamed as a 2x2 mesh on "
+              f"two ranks (two blocks each) against one process, fixed "
+              f"batches of 8 windows: rasters, gauge CSV and all "
+              f"{len(res_5h['members'])} checkpoint members equal; "
+              f"{res_5h['steps']} steps (+{res_5h['idle']} idle), window "
+              f"{res_5h['window']}, {res_5h['reruns']} re-runs on both; "
+              f"launches: godunov_fused "
+              f"{res_5h['launches']['godunov_fused']}", flush=True)
 
     # The kernels line: launches on each kernel's main path, times and
     # bounds of one f32c step at 9.04 M cells on the random domain.

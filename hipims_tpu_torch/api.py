@@ -150,8 +150,17 @@ class SimulationHandle:
         """One derived field (runtime/output.py VALUE_NAMES) in domain
         orientation: from the event's snapshot inside an on_output
         callback, else from a new snapshot of the run.  A streaming
-        snapshot assembles only the requested field, from row chunks."""
+        snapshot assembles only the requested field, from row chunks.
+        Inside a callback of a multi-process streamed run it raises: the
+        callback fires on the writing rank alone, and the chunk reads
+        are collective (use io_mode="gather", or gauges)."""
+        from .parallel.distributed import world_size
         from .runtime.output import derive_field
+        if getattr(self._snapshot, "streaming", False) and world_size() > 1:
+            raise RuntimeError(
+                "field() inside an on_output callback is not available in "
+                "multi-process streamed-IO runs; set io_mode='gather' (or "
+                "sample gauges instead)")
         view = (self._snapshot if self._snapshot is not None
                 else self._sim.output_view())
         dx, datum = self._sim.domain.dx, self._sim.domain.datum
@@ -165,9 +174,10 @@ class SimulationHandle:
 
 class _ChainedWriter:
     """The writer installed by SimulationHandle.on_output: runs the
-    adopted ``inner`` writer first, then the handle's callbacks with the
-    event's snapshot exposed.  ``inner`` is public so later code can
-    extend the chain instead of replacing it."""
+    adopted ``inner`` writer first (on every rank: its reads are
+    collective), then, where the event writes files, the handle's
+    callbacks with the event's snapshot exposed.  ``inner`` is public so
+    later code can extend the chain instead of replacing it."""
 
     def __init__(self, handle, inner):
         self.handle = handle
@@ -176,6 +186,8 @@ class _ChainedWriter:
     def __call__(self, sim_view, t):
         if self.inner is not None:
             self.inner(sim_view, t)
+        if not getattr(sim_view, "write_files", True):
+            return
         h = self.handle
         h._snapshot = sim_view
         try:

@@ -4,6 +4,7 @@ Usage:
     python -m hipims_tpu_torch -c model.xml [-q] [-n] [--platform cpu]
         [--checkpoint run.npz] [--resume run.npz]
         [--mesh N] [--mesh-shape RxC] [--io-mode auto|gather|stream]
+        [--distributed env|addr:port,num_processes,process_id]
 
 The reference's own command line (``-c model.xml -m -x dir -s``) runs
 too: ``-m`` and ``-x`` are accepted and ignored, each with a note.
@@ -16,6 +17,14 @@ card where there are fewer cards than blocks, or all on the CPU.
 ``--io-mode stream`` (and the default "auto" at 16 M cells and more)
 writes every output event from bounded row chunks
 (runtime/sharded_io.py), on one device and under a mesh.
+
+``--distributed`` runs one process per rank under torch.distributed
+(gloo; parallel/distributed.py), every rank with the same arguments but
+its own process id: the mesh's blocks are dealt out to the ranks (each
+rank's on its own device, ``cuda:(LOCAL_RANK or rank) % count``), and
+without ``--mesh`` every rank runs the whole grid.  Rank 0 alone logs and
+writes files; every rank runs the output events, whose reads are
+collective.
 """
 
 from __future__ import annotations
@@ -67,29 +76,61 @@ def parse_args(argv=None):
                          "mesh), stepped in halo-deep windows")
     ap.add_argument("--mesh-shape", default=None, metavar="RxC",
                     help="explicit mesh shape, e.g. 2x2")
-    # Accepted so that a JAX command line fails with a clear message.
-    ap.add_argument("--distributed", default=None, help="not yet ported")
+    ap.add_argument("--distributed", default=None, metavar="SPEC",
+                    help="multi-process run: 'env' (MASTER_ADDR, "
+                         "MASTER_PORT, RANK, WORLD_SIZE, as torchrun sets "
+                         "them) or 'addr:port,num_processes,process_id'")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.distributed is None:
+        return _main(args, False)
+    from .parallel import distributed
+    from .utils.logging import Logger
+    try:
+        distributed.initialize_cluster(
+            *(distributed.parse_spec(args.distributed) or ()))
+    except ValueError as e:
+        # A bad SPEC, or 'env' without the rendezvous variables.
+        Logger(quiet=True).error(str(e))
+        return 1
+    try:
+        rc = _main(args, True)
+        if rc == 0:
+            distributed.barrier()
+        return rc
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
+
+def _main(args, cluster: bool):
+    """The run; ``cluster`` when this process is one rank of several."""
     from .io.xml_config import load_config
+    from .parallel.distributed import host_summary, is_coordinator, \
+        rank_device
     from .runtime.progress import ProgressReporter
     from .utils.logging import Logger
 
-    log = Logger(path=args.log_file, quiet=args.quiet_mode)
+    # Rank 0 alone logs (reference: rank-0-only console,
+    # src/main.cpp:561-578).
+    coordinator = is_coordinator()
+    log = Logger(path=args.log_file if coordinator else None,
+                 quiet=args.quiet_mode or not coordinator)
     log.block("Model configuration")
     if args.mpi_mode:
         log.line("note: --mpi-mode is a no-op here; multi-process runs "
                  "use --distributed (rank gating is automatic)")
     if args.code_dir:
         log.line("note: --code-dir ignored (no OpenCL sources to locate)")
-    if args.distributed is not None:
-        log.error("--distributed: not yet ported to hipims_tpu_torch "
-                  "(ROADMAP.md, queue 1)")
-        return 1
+    if cluster:
+        summary = host_summary()
+        log.line(f"  Cluster:     {summary['process_count']} ranks, "
+                 f"backend {summary['backend']}, "
+                 f"{summary['global_device_count']} device(s) as the ranks "
+                 "see them")
 
     try:
         model = load_config(args.config_file)
@@ -106,9 +147,7 @@ def main(argv=None):
                       "a CPU-only PyTorch); pass --platform cpu to run the "
                       "plain versions on the CPU")
             return 1
-        device = torch.device("cuda", 0)
-    else:
-        device = torch.device("cpu")
+    device = rank_device(args.platform)
 
     log.line(f"  Name:        {model.name}")
     log.line(f"  Scheme:      {model.config.scheme}")
@@ -124,7 +163,8 @@ def main(argv=None):
     log.line(f"  Precision:   {model.config.dtype}")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    log.line(f"  Device:      {device} ({name})")
+    log.line(f"  Device:      {device} ({name})"
+             + (" on rank 0" if cluster else ""))
 
     mesh = None
     if args.mesh or args.mesh_shape:
@@ -143,6 +183,9 @@ def main(argv=None):
             return 1
         log.line(f"  Mesh:        {mesh.shape} ({mesh.devices.size} "
                  "blocks)")
+    elif cluster:
+        log.line("  Mesh:        none: every rank runs the whole grid, "
+                 "rank 0 writes")
 
     try:
         sim = model.simulation(device=device, mesh=mesh)
@@ -156,6 +199,9 @@ def main(argv=None):
         for ln in device_table(sim):
             log.line(ln)
         log.line(f"  Window:      {sim.window} step(s) per halo exchange")
+    # Every rank runs the output events (their reads are collective);
+    # rank 0 alone writes the files.
+    sim.write_outputs = coordinator
     if args.resume:
         from .runtime.checkpoint import load_checkpoint
         try:
@@ -167,6 +213,8 @@ def main(argv=None):
     if args.checkpoint:
         sim.checkpoint_path = args.checkpoint
     if args.mass_balance:
+        # The volume is collective across processes: every rank sums it,
+        # rank 0 logs it.
         inner_writer = sim.output_writer
         vol0 = sim.volume()
 
@@ -178,7 +226,8 @@ def main(argv=None):
                      f"(delta {vol - vol0:+.3f} vs start)")
 
         sim.output_writer = mass_writer
-    reporter = ProgressReporter(log, sim, quiet=args.quiet_mode)
+    reporter = ProgressReporter(log, sim,
+                                quiet=args.quiet_mode or not coordinator)
 
     log.block("Simulation")
     t0 = time.monotonic()

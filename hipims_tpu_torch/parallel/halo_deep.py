@@ -5,7 +5,8 @@ iterations between halo exchanges, bounded by the halo depth ("rollback
 limit" = overlap - 1; reference: src/Domain/CDomainBase.cpp:163-174,
 CSchemeGodunov.cpp:1273-1305).  The JAX package runs it as a
 ``shard_map`` window (``hipims_tpu/parallel/halo_deep.py``); here the same
-window runs in one process over ``HaloDeepBlocks``:
+window runs over ``HaloDeepBlocks``, in one process or across the ranks of
+a process group (below):
 
   1. every block of the mesh holds its share of the grid halo-EXTENDED by
      ``halo_pads`` cells a side, in a zero frame where the block meets the
@@ -43,17 +44,37 @@ row or a column (``mesh.block_spans``), and where not even a window of one
 step fits a block, ``Simulation`` raises where the JAX package falls back
 to per-step GSPMD halos (ROADMAP.md section 3).
 
-Host reads: lock-step reads nothing; window mode reads one 0-d tensor per
-window, the ``violated`` predicate (and one more per re-run), as the
-JAX package's ``while_loop`` reads it on the device.
+Host reads: in one process lock-step reads nothing; window mode reads one
+0-d tensor per window, the ``violated`` predicate (and one more per
+re-run), as the JAX package's ``while_loop`` reads it on the device.
+
+Across processes (``parallel/distributed.py``) the geometry stays global:
+every rank knows every block's ``own``, ``origin`` and pads, and holds the
+tensors, boundaries and force masks of its own blocks only.  A halo strip
+between two of its blocks is still copied in place; one between ranks is
+sent and received (``dist.batch_isend_irecv`` through host buffers, the
+rows pass completing before the columns pass, every rank posting in the
+same global pair order).  Each rank takes the ``torch.maximum`` of its
+blocks' speeds, then the ranks' values are all-gathered and folded in
+rank order (``distributed.max_over_ranks``: gloo's ReduceOp.MAX drops a
+NaN from rank 1 or above), so every rank holds the same speed, advances
+its own copy of the carry alike and takes the same re-run decisions.
+That is one host read per lock-step step (the reference's per-step
+MPI_Allreduce, src/MPI/CMPIManager.cpp:837-889) and one per window in
+window mode.  The NaN probe all-gathers the blocks' sums and adds them in
+block order, as one process does.
 
 Output events read the blocks in one of two ways.  The gathered path's
 ``state``, ``static`` and ``comp`` assemble each plane's owned cells into
-one full-grid tensor on the first block's device.  The streamed path
-(runtime/sharded_io.py) assembles nothing: an ``OwnedPlane`` copies a row
-chunk of the grid to the host from the owned cells of each block the rows
-cross, samples cells on the blocks that own them, and ``owned`` gives the
-owned views a volume sums block by block.
+one full-grid tensor on the first local block's device.  The streamed
+path (runtime/sharded_io.py) assembles nothing: an ``OwnedPlane`` copies a
+row chunk of the grid to the host from the owned cells of each block the
+rows cross, samples cells on the blocks that own them, and ``owned`` gives
+the owned views a volume sums block by block.  Across processes each rank
+fills the parts its blocks own and the rest arrives by one all-gather of
+the ranks' parts (``distributed.all_gather_host``), so every rank holds
+the whole chunk, cell sample or grid, as JAX's ``process_allgather``
+gives it: collective, so every rank makes the same reads.
 """
 
 from __future__ import annotations
@@ -63,12 +84,14 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.boundaries import apply_boundaries, interior_force_mask
 from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
 from ..ops.timestep import advance, max_wave_speed
 from ..state import DomainStatic, FlowState, StepCarry
+from . import distributed
 from .mesh import Mesh, block_geometry
 
 # Re-runs of one window before it is accepted as it stands
@@ -110,13 +133,14 @@ class Block:
     """One block of the mesh: where it lies, and its extended planes."""
 
     index: tuple                    # (iy, ix) in the mesh
+    rank: int                       # the process that owns it
     device: torch.device
     own: tuple                      # (r0, nr, c0, nc) of the logical grid
     origin: tuple                   # global index of the extended [0, 0]
     speed_window: tuple             # the owned cells in the extended array
-    static: DomainStatic
-    boundaries: tuple
-    force_mask: torch.Tensor
+    static: DomainStatic = None     # this rank's blocks only, from here on
+    boundaries: tuple = ()
+    force_mask: torch.Tensor = None
     state: FlowState = None
     comp: torch.Tensor = None
 
@@ -142,10 +166,17 @@ def _carry_on(carry: StepCarry, device) -> StepCarry:
     return StepCarry(*(v.to(device) for v in carry))
 
 
+def _strip(a, axis, start, stop):
+    """Rows (axis 0) or columns (axis 1) [start, stop) of ``a``."""
+    return a[start:stop] if axis == 0 else a[:, start:stop]
+
+
 class HaloDeepBlocks:
     """The blocks of a mesh run and their halo-deep window (module
-    docstring).  ``run_batch`` advances the carry, which lives on the
-    first block's device, by ``n_windows`` windows."""
+    docstring): ``layout`` is every block of the mesh, ``blocks`` this
+    rank's (all of them in one process).  ``run_batch`` advances the
+    carry, which lives on the first local block's device, by
+    ``n_windows`` windows."""
 
     def __init__(self, mesh: Mesh, scheme, params, ts_params,
                  boundaries: Sequence, domain, state: FlowState,
@@ -167,50 +198,93 @@ class HaloDeepBlocks:
         self.amortise = (dt_mode == "window" and window > 1
                          and ts_params.dynamic)
         self.reruns = 0
+        self.rank = distributed.rank()
+        self.distributed = distributed.world_size() > 1
         pr, pc = self.pads
-        self.blocks = []
+        self.layout, self.blocks = [], []
         for (iy, ix), own in sorted(block_geometry(*self.logical,
                                                    mesh.shape).items()):
-            dev = mesh.devices[iy, ix]
             r0, nr, c0, nc = own
+            b = Block(index=(iy, ix), rank=int(mesh.ranks[iy, ix]),
+                      device=mesh.devices[iy, ix], own=own,
+                      origin=(r0 - pr, c0 - pc),
+                      speed_window=(pr, nr, pc, nc))
+            self.layout.append(b)
+            if b.rank != self.rank:
+                continue
             shape = (nr + 2 * pr, nc + 2 * pc)
-            origin = (r0 - pr, c0 - pc)
-            self.blocks.append(Block(
-                index=(iy, ix), device=dev, own=own, origin=origin,
-                speed_window=(pr, nr, pc, nc),
-                static=DomainStatic(*(extend(a, own, self.pads, dev)
-                                      for a in static)),
-                boundaries=tuple(b.to(dev, state.z.dtype, domain,
-                                      origin=origin, shape=shape)
-                                 for b in boundaries),
-                force_mask=interior_force_mask(shape, scheme.radius, dev,
-                                               origin, self.logical)))
+            b.static = DomainStatic(*(extend(a, own, self.pads, b.device)
+                                      for a in static))
+            b.boundaries = tuple(b_.to(b.device, state.z.dtype, domain,
+                                       origin=b.origin, shape=shape)
+                                 for b_ in boundaries)
+            b.force_mask = interior_force_mask(shape, scheme.radius,
+                                               b.device, b.origin,
+                                               self.logical)
+            self.blocks.append(b)
+        if not self.blocks:
+            raise ValueError(f"rank {self.rank} owns no block of the "
+                             f"{mesh.shape} mesh")
+        self._staging = {}
         self.load_state(state)
         self.load_comp(comp)
 
     # ------------------------------------------------------------------
     # The full grid in and out.
     def load_state(self, state: FlowState):
-        """Scatter a full-grid state into the blocks (and their halos)."""
+        """Scatter a full-grid state into this rank's blocks (and their
+        halos)."""
         for b in self.blocks:
             b.state = FlowState(*(extend(a, b.own, self.pads, b.device)
                                   for a in state))
 
     def load_comp(self, comp):
-        """Scatter a full-grid comp plane (or None) into the blocks."""
+        """Scatter a full-grid comp plane (or None) into this rank's
+        blocks."""
         for b in self.blocks:
             b.comp = (None if comp is None
                       else extend(comp, b.own, self.pads, b.device))
 
+    def exchange(self, parts, count):
+        """{block index: 1-D host tensor} for every block of the mesh from
+        ``parts``, the same for this rank's blocks, given ``count(block)``,
+        the length of any block's part (known on every rank).  One
+        all-gather across processes; ``parts`` itself in one."""
+        if not self.distributed:
+            return parts
+        sizes = [0] * distributed.world_size()
+        for b in self.layout:
+            sizes[b.rank] += count(b)
+        got = distributed.all_gather_host(
+            torch.cat([parts[b.index].reshape(-1) for b in self.blocks]),
+            sizes)
+        out, offsets = dict(parts), [0] * len(sizes)
+        for b in self.layout:
+            n, o = count(b), offsets[b.rank]
+            if b.rank != self.rank:
+                out[b.index] = got[b.rank][o:o + n]
+            offsets[b.rank] += n
+        return out
+
     def _assemble(self, planes):
-        """One full-grid tensor on the first block's device from the
-        blocks' owned cells of ``planes`` (one plane per block)."""
-        first = self.blocks[0]
+        """One full-grid tensor on the first local block's device from the
+        blocks' owned cells of ``planes`` (one plane per local block); the
+        other ranks' blocks arrive by ``exchange``."""
         out = torch.empty(self.logical, dtype=planes[0].dtype,
-                          device=first.device)
+                          device=self.blocks[0].device)
+        parts = {}
         for b, a in zip(self.blocks, planes):
             r0, nr, c0, nc = b.own
             out[r0:r0 + nr, c0:c0 + nc].copy_(a[b.interior])
+            if self.distributed:
+                parts[b.index] = a[b.interior].reshape(-1).cpu()
+        if self.distributed:
+            got = self.exchange(parts, lambda b: b.own[1] * b.own[3])
+            for b in self.layout:
+                if b.rank != self.rank:
+                    r0, nr, c0, nc = b.own
+                    out[r0:r0 + nr, c0:c0 + nc].copy_(
+                        got[b.index].reshape(nr, nc))
         return out
 
     def state(self) -> FlowState:
@@ -231,7 +305,7 @@ class HaloDeepBlocks:
     # Reads that assemble nothing (streamed output events).
     def owned(self, name):
         """[(block, view)]: the owned cells of plane ``name`` (a FlowState
-        or DomainStatic field, or "comp") in each block, as views."""
+        or DomainStatic field, or "comp") in each local block, as views."""
         out = []
         for b in self.blocks:
             if name == "comp":
@@ -248,34 +322,79 @@ class HaloDeepBlocks:
 
     # ------------------------------------------------------------------
     # The exchange.
-    def _refresh(self, planes):
-        """Refresh the halo strips of ``planes`` (one extended plane per
-        block, in self.blocks' order) in place from the neighbours'
-        owned cells: rows full-width first, then columns full-height,
-        which carries the corners in two hops.  Every strip read is owned
-        cells and every strip written is halo, so the order of the
-        copies within a pass does not matter."""
-        py, px = self.mesh.shape
-        pr, pc = self.pads
-        grid = {b.index: a for b, a in zip(self.blocks, planes)}
-        for iy in range(py - 1):
-            for ix in range(px):
-                lo, hi = grid[iy, ix], grid[iy + 1, ix]
-                n = lo.shape[0] - 2 * pr
-                hi[:pr].copy_(lo[n:n + pr])
-                lo[n + pr:].copy_(hi[pr:2 * pr])
-        for ix in range(px - 1):
-            for iy in range(py):
-                lo, hi = grid[iy, ix], grid[iy, ix + 1]
-                n = lo.shape[1] - 2 * pc
-                hi[:, :pc].copy_(lo[:, n:n + pc])
-                lo[:, n + pc:].copy_(hi[:, pc:2 * pc])
-
     def _refresh_all(self, states, comps):
-        for k in range(4):
-            self._refresh([st[k] for st in states])
+        """Refresh the halo strips of every plane of ``states`` and
+        ``comps`` (one per local block) from the neighbours' owned cells:
+        rows full-width first, then columns full-height, which carries
+        the corners in two hops."""
+        planes = [[st[k] for st in states] for k in range(4)]
         if comps[0] is not None:
-            self._refresh(comps)
+            planes.append(list(comps))
+        grids = [{b.index: a for b, a in zip(self.blocks, pl)}
+                 for pl in planes]
+        py, px = self.mesh.shape
+        self._pass(grids, [((iy, ix), (iy + 1, ix)) for iy in range(py - 1)
+                           for ix in range(px)], 0)
+        self._pass(grids, [((iy, ix), (iy, ix + 1)) for ix in range(px - 1)
+                           for iy in range(py)], 1)
+
+    def _pass(self, grids, pairs, axis):
+        """One pass along ``axis`` (0 rows, 1 columns): each neighbour pair
+        (lo, hi) gives hi its low halo from lo's owned cells and lo its
+        high halo from hi's.  Every strip read is owned cells and every
+        strip written is halo, so the order within a pass does not
+        matter.  Pairs of this rank's blocks copy in place; a pair across
+        ranks sends its strip and receives the other's through host
+        buffers, every rank posting in the same global pair order with
+        one tag per strip, and the pass returns once all have landed."""
+        p = self.pads[axis]
+        ranks = {b.index: b.rank for b in self.layout}
+        ops, landings = [], []
+        for i, (li, hi_) in enumerate(pairs):
+            if self.rank not in (ranks[li], ranks[hi_]):
+                continue
+            for k, grid in enumerate(grids):
+                lo, hi = grid.get(li), grid.get(hi_)
+                tag = 2 * (i * len(grids) + k)
+                if lo is not None:
+                    n = lo.shape[axis] - 2 * p
+                if lo is not None and hi is not None:
+                    _strip(hi, axis, 0, p).copy_(_strip(lo, axis, n, n + p))
+                    _strip(lo, axis, n + p, None).copy_(
+                        _strip(hi, axis, p, 2 * p))
+                elif lo is not None:
+                    self._post(ops, landings, axis, ranks[hi_],
+                               _strip(lo, axis, n, n + p), tag,
+                               _strip(lo, axis, n + p, None), tag + 1)
+                else:
+                    self._post(ops, landings, axis, ranks[li],
+                               _strip(hi, axis, p, 2 * p), tag + 1,
+                               _strip(hi, axis, 0, p), tag)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            for dst, buf in landings:
+                dst.copy_(buf)
+
+    def _post(self, ops, landings, axis, peer, send, send_tag, recv,
+              recv_tag):
+        """Queue one strip out to ``peer`` and one in from it, each through
+        a host buffer of its exact shape and dtype (pinned for a card's
+        strips; gloo checks neither), kept for the next exchange."""
+        def buffer(key, like):
+            buf = self._staging.get(key)
+            if buf is None:
+                buf = torch.empty(like.shape, dtype=like.dtype,
+                                  pin_memory=like.is_cuda)
+                self._staging[key] = buf
+            return buf
+
+        out = buffer((axis, send_tag), send)
+        out.copy_(send)
+        into = buffer((axis, recv_tag), recv)
+        ops.append(dist.P2POp(dist.isend, out, peer, tag=send_tag))
+        ops.append(dist.P2POp(dist.irecv, into, peer, tag=recv_tag))
+        landings.append((recv, into))
 
     # ------------------------------------------------------------------
     # Steps.
@@ -301,9 +420,9 @@ class HaloDeepBlocks:
         return out[0], out[1], (out[2] if cm is not None else None)
 
     def _step_all(self, states, comps, carry):
-        """One step of every block from the same carry; returns the new
-        states and comps and the max of the blocks' owned maxima on the
-        carry's device."""
+        """One step of every local block from the same carry; returns the
+        new states and comps and the max of their owned maxima on the
+        carry's device (this rank's only)."""
         out = [self._one_step(b, st, cm, carry)
                for b, st, cm in zip(self.blocks, states, comps)]
         return ([o[0] for o in out], [o[2] for o in out],
@@ -316,20 +435,20 @@ class HaloDeepBlocks:
     def _frozen_window(self, states, comps, carry, g, sync_time):
         """``window`` steps on the frozen speed ``g`` (dt from g *
         dt_safety through the controller's clamp ladder), and the max
-        speed observed over them."""
+        speed observed over them on every rank."""
         smax = torch.zeros_like(g)
         for _ in range(self.window):
             states, comps, local = self._step_all(states, comps, carry)
             carry = self._advance(carry, g * self.dt_safety, sync_time)
             smax = torch.maximum(smax, local)
-        return states, comps, carry, smax
+        return states, comps, carry, distributed.max_over_ranks(smax)
 
     def owned_max_speed(self, carry):
         """The max wave speed over every block's owned cells."""
-        return _max_on((max_wave_speed(
+        return distributed.max_over_ranks(_max_on((max_wave_speed(
             *(a[b.interior] for a in b.state), b.static.zb[b.interior],
             self.params.quite_small, self.ts_params.simplified_speed)
-            for b in self.blocks), carry.t.device)
+            for b in self.blocks), carry.t.device))
 
     def run_batch(self, carry: StepCarry, sync_time, n_windows: int):
         """``n_windows`` exchange windows of ``window`` steps each; returns
@@ -345,6 +464,7 @@ class HaloDeepBlocks:
                 for _ in range(self.window):
                     states, comps, gmax = self._step_all(states, comps,
                                                          carry)
+                    gmax = distributed.max_over_ranks(gmax)
                     carry = self._advance(carry, gmax, sync_time)
                 continue
             saved = (states, comps, carry)
@@ -373,10 +493,16 @@ class HaloDeepBlocks:
         for b, st, cm in zip(self.blocks, states, comps):
             b.state, b.comp = st, cm
         # NaN/Inf probe, as in Simulation._run_batch: divergence poisons
-        # the batch statistic the host reads.
+        # the batch statistic the host reads.  Every block's sum, added in
+        # block order on every rank.
+        sums = {b.index: torch.sum(b.state.z[b.interior]).reshape(1)
+                for b in self.blocks}
+        if self.distributed:
+            sums = self.exchange({k: v.cpu() for k, v in sums.items()},
+                                 lambda b: 1)
         poison = None
-        for b in self.blocks:
-            s = torch.sum(b.state.z[b.interior]).to(carry.t.device)
+        for b in self.layout:
+            s = sums[b.index].reshape(()).to(carry.t.device)
             poison = s if poison is None else poison + s
         return carry._replace(batch_dt_total=carry.batch_dt_total
                               + 0.0 * poison)
@@ -386,25 +512,48 @@ class OwnedPlane:
     """One plane of a mesh run read through the blocks' owned cells, never
     assembled: its grid ``shape``, its host ``dtype`` (numpy), rows copied
     to the host (``host_rows``) and cells sampled (``host_cells``).  It
-    reads the blocks' planes when called, so it follows the run."""
+    reads the blocks' planes when called, so it follows the run.  Across
+    processes each read is collective and every rank gets the whole
+    answer."""
 
     def __init__(self, blocks: HaloDeepBlocks, name: str):
         self._blocks = blocks
         self._name = name
         self.shape = blocks.logical
-        self.dtype = torch.empty(
-            (), dtype=blocks.owned(name)[0][1].dtype).numpy().dtype
+        self._torch_dtype = blocks.owned(name)[0][1].dtype
+        self.dtype = torch.empty((), dtype=self._torch_dtype).numpy().dtype
+
+    def _part(self, values):
+        return torch.from_numpy(np.ascontiguousarray(values).reshape(-1))
 
     def host_rows(self, r0: int, n: int) -> np.ndarray:
         """Rows [r0, r0 + n) of the grid as one host array, each block's
         part copied from its owned cells into its columns."""
         out = np.empty((n, self.shape[1]), dtype=self.dtype)
+
+        def span(b):
+            br0, bnr = b.own[:2]
+            return max(r0, br0), min(r0 + n, br0 + bnr)
+
+        parts = {}
         for b, a in self._blocks.owned(self._name):
-            br0, bnr, bc0, bnc = b.own
-            lo, hi = max(r0, br0), min(r0 + n, br0 + bnr)
+            (lo, hi), br0, bc0, bnc = span(b), b.own[0], b.own[2], b.own[3]
             if lo < hi:
-                out[lo - r0:hi - r0, bc0:bc0 + bnc] = \
-                    a[lo - br0:hi - br0].cpu().numpy()
+                rows = a[lo - br0:hi - br0].cpu().numpy()
+                out[lo - r0:hi - r0, bc0:bc0 + bnc] = rows
+            else:
+                rows = np.empty((0, bnc), self.dtype)
+            parts[b.index] = self._part(rows)
+        if self._blocks.distributed:
+            def count(b):
+                lo, hi = span(b)
+                return max(hi - lo, 0) * b.own[3]
+            got = self._blocks.exchange(parts, count)
+            for b in self._blocks.layout:
+                (lo, hi), bc0, bnc = span(b), b.own[2], b.own[3]
+                if b.rank != self._blocks.rank and lo < hi:
+                    out[lo - r0:hi - r0, bc0:bc0 + bnc] = \
+                        got[b.index].numpy().reshape(hi - lo, bnc)
         return out
 
     def host_cells(self, rows, cols) -> np.ndarray:
@@ -413,12 +562,22 @@ class OwnedPlane:
         rows = np.asarray(rows, dtype=np.int64).reshape(-1)
         cols = np.asarray(cols, dtype=np.int64).reshape(-1)
         out = np.empty(rows.shape, dtype=self.dtype)
-        for b, a in self._blocks.owned(self._name):
+
+        def mine(b):
             br0, bnr, bc0, bnc = b.own
-            mine = ((rows >= br0) & (rows < br0 + bnr)
+            return ((rows >= br0) & (rows < br0 + bnr)
                     & (cols >= bc0) & (cols < bc0 + bnc))
-            if mine.any():
-                ri = torch.as_tensor(rows[mine] - br0, device=a.device)
-                ci = torch.as_tensor(cols[mine] - bc0, device=a.device)
-                out[mine] = a[ri, ci].cpu().numpy()
+
+        parts = {}
+        for b, a in self._blocks.owned(self._name):
+            m = mine(b)
+            ri = torch.as_tensor(rows[m] - b.own[0], device=a.device)
+            ci = torch.as_tensor(cols[m] - b.own[2], device=a.device)
+            out[m] = a[ri, ci].cpu().numpy()
+            parts[b.index] = self._part(out[m])
+        if self._blocks.distributed:
+            got = self._blocks.exchange(parts, lambda b: int(mine(b).sum()))
+            for b in self._blocks.layout:
+                if b.rank != self._blocks.rank:
+                    out[mine(b)] = got[b.index].numpy()
         return out

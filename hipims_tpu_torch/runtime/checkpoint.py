@@ -15,7 +15,10 @@ saved 10% of the bytes for ~10 s per checkpoint on an H100 machine
 Each plane is written in row chunks of the output event's snapshot
 (runtime/sharded_io.py ``StreamingCheckpointWriter``): a streamed
 snapshot's bounded chunks, so no plane is copied to the host whole, or a
-gathered snapshot's host copy as one chunk.
+gathered snapshot's host copy as one chunk.  In a multi-process run every
+rank reads the chunks (the reads are collective), rank 0 alone writes the
+file, and a barrier follows, so no rank resumes from a half-written file;
+on resume every rank reads the file and loads its own blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel.distributed import barrier, is_coordinator
 from ..state import FlowState, StepCarry
 
 CHECKPOINT_VERSION = 1
@@ -57,11 +61,20 @@ def save_checkpoint(path, sim, snapshot=None):
     streams in row chunks of ``snapshot.chunk_rows`` into its stored
     member, in the order ``np.savez`` would write them.  The file is
     written beside ``path`` and renamed over it once whole, so a failed
-    save leaves the last checkpoint as it was."""
+    save leaves the last checkpoint as it was.  Every rank of a
+    multi-process run calls this: all read the chunks, rank 0 writes, and
+    all wait for it."""
     from .sharded_io import StreamingCheckpointWriter, host_dtype, stream_rows
 
     path = Path(path)
     snap = snapshot if snapshot is not None else sim.output_view()
+    names = list(FlowState._fields) + (["comp"] if sim.compensated else [])
+    if not is_coordinator():
+        for name in names:
+            for _ in stream_rows(snap.plane(name), snap.chunk_rows):
+                pass
+        barrier()
+        return
 
     def stream(zw, name):
         plane = snap.plane(name)
@@ -72,7 +85,7 @@ def save_checkpoint(path, sim, snapshot=None):
     part = path.with_name(path.name + ".part")
     with StreamingCheckpointWriter(part) as zw:
         zw.add_array("meta", json.dumps(_meta(sim)))
-        for name in FlowState._fields:
+        for name in names[:4]:
             stream(zw, name)
         for name, value in sim.carry._asdict().items():
             zw.add_array(name, value.cpu().numpy())
@@ -81,12 +94,14 @@ def save_checkpoint(path, sim, snapshot=None):
             # rounding error from zero (harmless but inexact).
             stream(zw, "comp")
     os.replace(part, path)
+    barrier()
 
 
 def load_checkpoint(path, sim):
     """Restore a checkpoint into an existing, compatible Simulation: the
     same grid, scheme and datum (precision modes with different datum
-    shifts cannot resume each other)."""
+    shifts cannot resume each other).  Under a mesh each plane is loaded
+    into this rank's blocks."""
     with np.load(Path(path), allow_pickle=False) as data:
         meta = json.loads(str(data["meta"]))
         if meta["version"] != CHECKPOINT_VERSION:
@@ -112,11 +127,12 @@ def load_checkpoint(path, sim):
             return torch.as_tensor(np.asarray(data[key])).to(
                 device=sim.device, dtype=dtype)
 
-        sim.state = FlowState(z=put("z"), zmax=put("zmax"), qx=put("qx"),
+        z = put("z")
+        sim.state = FlowState(z=z, zmax=put("zmax"), qx=put("qx"),
                               qy=put("qy"))
         if sim.compensated:
             sim.comp = (put("comp") if "comp" in data
-                        else torch.zeros_like(sim.state.z))
+                        else torch.zeros_like(z))
         sim.carry = StepCarry(
             t=put("t"), dt=put("dt"), t_hydro=put("t_hydro"),
             batch_dt_total=put("batch_dt_total"),

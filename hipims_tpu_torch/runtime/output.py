@@ -14,7 +14,9 @@ view (io_mode "stream", runtime/sharded_io.py).  Both are read alike: row
 chunks feed the rasters north-first in one pass (the gathered copy is one
 chunk), and sampled cells feed the gauges, so both give the same bytes:
 the same ``derive_field`` on the same float64 values, through the same
-strip writers.
+strip writers.  Every rank of a multi-process run calls the writers,
+since their reads are collective (parallel/distributed.py); each writes
+files only where the snapshot's ``write_files`` is set.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from .. import constants as C
 from ..io.raster import Raster, write_raster
+from ..parallel.distributed import is_coordinator
 from ..utils import time_label
 
 NODATA = -9999.0
@@ -84,11 +87,13 @@ def derive_field(value: str, state, static, resolution: float,
 class GaugeOutputWriter:
     """Appends point-gauge samples of one field to a CSV at every output
     time: one row per time, one column per gauge (the same file as the
-    JAX package's writer, row for row)."""
+    JAX package's writer, row for row).  Every rank samples; the writing
+    rank appends."""
 
     def __init__(self, value, gauges, target_path, domain):
         """gauges: [(x_world, y_world, name)]; gauges off the grid are
-        dropped."""
+        dropped.  The header is written by rank 0 alone, so a late rank
+        cannot truncate the rows rank 0 has appended."""
         import os
         self.value = value
         self.domain = domain
@@ -102,14 +107,18 @@ class GaugeOutputWriter:
             if 0 <= ri < domain.rows and 0 <= ci < domain.cols:
                 self.cells.append((ri, ci))
                 names.append(name)
-        with open(target_path, "w") as f:
-            f.write("Time (s)," + ",".join(names) + "\n")
+        if is_coordinator():
+            with open(target_path, "w") as f:
+                f.write("Time (s)," + ",".join(names) + "\n")
 
     def __call__(self, sim, t: float):
         # Every field is derived cell by cell, so derive it on the gauge
         # cells alone (on a streamed snapshot, read on the device).
         idx = tuple(np.asarray(self.cells, dtype=np.int64).reshape(-1, 2).T)
-        state, static = sim.output_view().sample_cells(*idx)
+        view = sim.output_view()
+        state, static = view.sample_cells(*idx)
+        if not view.write_files:
+            return
         vals = derive_field(self.value, state, static, sim.domain.dx,
                             datum=sim.domain.datum)
         # Derived fields set the sentinel exactly; a tight absolute
@@ -179,7 +188,8 @@ class RasterOutputWriter:
     The event's snapshot is read once, chunk by chunk, north-first (a
     gathered snapshot is one chunk), and every target's rows go to its
     strip sink: TIFF and ASC files are written as the rows arrive; HFA
-    rows are kept until the file is written at close."""
+    rows are kept until the file is written at close.  A rank that does
+    not write files reads the chunks all the same, and opens no sink."""
 
     def __init__(self, targets, target_dir, domain):
         """targets: list of dicts with keys value, format, target (filename
@@ -211,7 +221,7 @@ class RasterOutputWriter:
                      Path(self.target_dir)
                      / tgt["target"].replace("%t", time_label(t)),
                      tgt.get("format", "tif").lower(), d.rows, d.cols)
-                 for tgt in self.targets]
+                 for tgt in self.targets] if view.write_files else []
         # One pass over the chunks feeds every target.
         for _r0, st, sc in view.stream_chunks(reverse=True):
             for tgt, sink in zip(self.targets, sinks):

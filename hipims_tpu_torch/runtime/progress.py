@@ -68,17 +68,18 @@ def device_table(sim):
     every block advances in lock step (one global dt), so the figures that
     vary per domain in the reference (batch size, average dt) are shared
     here, and the table reports each block's device, its place in the
-    mesh, its rows and columns of the logical grid and its cells.
-    Returns a list of formatted lines (none without a mesh)."""
+    mesh, its rows and columns of the logical grid, its cells and the
+    rank that owns it.  Returns a list of formatted lines (none without a
+    mesh)."""
     if sim.mesh is None:
         return []
     from ..parallel.mesh import block_geometry
     lines = ["  device      placement   block rows        block cols       "
-             "cells"]
+             "cells  rank"]
     for (iy, ix), (r0, nr, c0, nc) in sorted(block_geometry(
             sim.domain.rows, sim.domain.cols, sim.mesh.shape).items()):
         lines.append(
             f"  {str(sim.mesh.devices[iy, ix]):<10}  ({iy},{ix})      "
             f"[{r0:>6}..{r0 + nr:>6})  [{c0:>6}..{c0 + nc:>6})  "
-            f"{nr * nc:>10,}")
+            f"{nr * nc:>10,}  {sim.mesh.ranks[iy, ix]:>4}")
     return lines

@@ -11,9 +11,13 @@ arrays read as one chunk:
 * ``stream_rows`` iterates a plane as bounded row chunks, each copied
   straight to the host: a row slice of a tensor on its device, or, under
   a mesh, the owned cells of the blocks the rows cross
-  (``parallel.halo_deep.OwnedPlane``).  There is one process, so there
-  are no collectives; peak host memory is one chunk, never the grid.
-  ``host_cells`` reads a few cells the same way (gauges).
+  (``parallel.halo_deep.OwnedPlane``).  Peak host memory is one chunk,
+  never the grid.  ``host_cells`` reads a few cells the same way
+  (gauges).  Across processes a mesh plane's read is collective: each
+  rank copies the parts its blocks own, and one all-gather of the ranks'
+  parts, padded to the largest (as JAX's ``process_allgather``), gives
+  every rank the whole chunk, byte for byte, -0.0 and NaN included; so
+  every rank drives the same reads, and only the writing rank writes.
 * ``StreamingCheckpointWriter`` writes an ``np.load``-able .npz
   incrementally: each plane streams chunk by chunk into one stored
   (uncompressed) zip member, as ``np.savez`` stores them.

@@ -17,7 +17,12 @@ each halo-extended on its device, and a batch is K exchange windows of
 under ``sync_method="forecast"``, otherwise 1.  The state and comp
 properties then assemble the blocks' owned cells into one full-grid copy
 on the first block's device, and setting them scatters a full grid back
-into the blocks.
+into the blocks.  Under a process group (``parallel/distributed.py``)
+each rank holds its own blocks and the carry on its first block's device;
+the assembly, the volume and every output read are collective, every rank
+runs the output event's writers and checkpoint (each gating its files on
+the snapshot's ``write_files``), and every rank sizes its batches from the
+slowest rank's elapsed time, so all run the same batches.
 
 An output event reads the state in one of two ways (``io_streaming``).
 Gathered, it copies each plane to the host once (``_OutputSnapshot``; under
@@ -47,6 +52,7 @@ from ..ops.godunov import SchemeParams
 from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
 from ..ops.timestep import TimestepParams, advance
+from ..parallel import distributed
 from ..parallel.halo_deep import HaloDeepBlocks, halo_pads
 from ..parallel.mesh import Mesh, block_geometry
 from ..state import DomainStatic, FlowState, initial_carry
@@ -168,6 +174,7 @@ class _StreamingSnapshot(_Snapshot):
 
     def __init__(self, sim: "Simulation"):
         self._sim = sim
+        self.write_files = sim.write_outputs
         # Six planes move per chunk set (4 state + 2 static).
         self.chunk_rows = sharded_io.chunk_rows_for(
             sim.domain.cols, n_fields=6, budget_mb=sim.config.io_chunk_mb)
@@ -220,9 +227,9 @@ class Simulation:
             raise ValueError("forecast_dt_safety must be >= 1.0 "
                              f"(got {config.forecast_dt_safety})")
         if mesh is not None:
-            # The carry and the assembled state live on the first block's
-            # device.
-            first = mesh.devices[0, 0]
+            # The carry and the assembled state live on the device of this
+            # rank's first block.
+            first = mesh.first_device(distributed.rank())
             if device is not None and torch.device(device) != first:
                 raise ValueError(f"device {device} is not the mesh's first "
                                  f"device {first}")
@@ -284,9 +291,11 @@ class Simulation:
         self._host_carry = self._read_carry()
         self.total_steps = 0
         self.total_skipped = 0
-        # Output events: writers run where write_outputs is set; a
-        # checkpoint is (re)written at every event when checkpoint_path is
-        # set (runtime/checkpoint.py).  wall_start is set by run().
+        # Output events: writers write files where write_outputs is set
+        # (every rank runs them: their reads are collective across
+        # processes); a checkpoint is (re)written at every event when
+        # checkpoint_path is set (runtime/checkpoint.py).  wall_start is set
+        # by run().
         self.write_outputs = True
         self.checkpoint_path = None
         self.wall_start = None
@@ -426,6 +435,8 @@ class Simulation:
             host = self._read_carry()
             self._host_carry = host
             elapsed = time.perf_counter() - t0
+            if self._blocks is not None and self._blocks.distributed:
+                elapsed = self._agree(host, elapsed)
             t_new, dt_now, total, ok, skipped = host
             if not np.isfinite(t_new) or np.isnan(dt_now) or np.isnan(total):
                 # dt = +/-inf is NOT divergence: a dry domain has zero wave
@@ -444,6 +455,24 @@ class Simulation:
                 raise RuntimeError(
                     f"Simulation stalled at t={t_new:.6f}s "
                     f"(dt={dt_now:.3e})")
+
+    @staticmethod
+    def _agree(host, elapsed: float) -> float:
+        """Across processes, after a batch: every rank's carry read and
+        elapsed seconds, all-gathered.  The carries must be equal (each
+        rank advances its own copy from the same speeds), and the batch
+        took the slowest rank's time, which every rank then sizes its next
+        batch from: batches seed their first frozen-speed window afresh,
+        so ranks on batches of their own would step different windows."""
+        world = distributed.world_size()
+        vals = distributed.all_gather_host(
+            torch.from_numpy(np.append(host, elapsed)), [6] * world)
+        for r, v in enumerate(vals):
+            if not np.array_equal(v[:5].numpy(), host, equal_nan=True):
+                raise RuntimeError(f"rank {r}'s carry {v[:5].tolist()} "
+                                   f"differs from this rank's "
+                                   f"{host.tolist()}")
+        return max(float(v[5]) for v in vals)
 
     def _adapt_batch(self, elapsed: float):
         """Size batches (of steps, or of windows under a mesh) toward the
@@ -477,14 +506,17 @@ class Simulation:
 
     def emit_output(self, t: float):
         """One output event: take a snapshot (``output_view``), write the
-        checkpoint (when checkpoint_path is set) and run the writers."""
+        checkpoint (when checkpoint_path is set) and run the writers.  On
+        every rank: their reads are collective across processes, and each
+        writes files only where the snapshot's ``write_files`` is set (the
+        checkpoint on rank 0)."""
         if self.output_writer is None and self.checkpoint_path is None:
             return
         snap = self.output_view()
         if self.checkpoint_path is not None:
             from .checkpoint import save_checkpoint
             save_checkpoint(self.checkpoint_path, self, snapshot=snap)
-        if self.output_writer is not None and self.write_outputs:
+        if self.output_writer is not None:
             self.output_writer(snap, t)
 
     def run(self, progress: Optional[Callable] = None):
@@ -535,13 +567,16 @@ class Simulation:
         volume sum, src/Domain/Cartesian/CDomainCartesian.cpp:743-760),
         summed in float64 on the device(s), so no output event copies a
         plane for it; under a mesh, each block's owned cells, then the
-        blocks."""
+        blocks in block order (across processes, their sums all-gathered
+        first, so every rank returns the one-process value)."""
         if self._blocks is None:
             total = float(_wet_sum(self._state.z, self._state.zmax,
                                    self._static.zb))
         else:
-            parts = zip(*(self._blocks.owned(n) for n in ("z", "zmax",
-                                                          "zb")))
-            total = sum(float(_wet_sum(z, zmax, zb))
-                        for (_, z), (_, zmax), (_, zb) in parts)
+            blocks = self._blocks
+            parts = zip(*(blocks.owned(n) for n in ("z", "zmax", "zb")))
+            sums = blocks.exchange(
+                {b.index: _wet_sum(z, zmax, zb).reshape(1).cpu()
+                 for (b, z), (_, zmax), (_, zb) in parts}, lambda b: 1)
+            total = sum(float(sums[b.index]) for b in blocks.layout)
         return total * self.domain.dx * self.domain.dy

@@ -388,3 +388,28 @@ def test_mesh_kernels_phase_on_cpu(monkeypatch):
     assert set(worst) == set(chip_smoke.MESH_KERNELS)
     assert all(v == 0.0 for v in worst.values())
     assert len(mesh_times) == 12
+
+
+def test_ranks_main_path_on_cpu(tmp_path):
+    """Phase 4j's two ranks (this script's --rank-worker processes, gloo
+    on the CPU) at 64x48, 20 s: rasters byte-equal to the one-process
+    run's, one checkpoint, the ranks agreeing (checked inside)."""
+    one = chip_smoke.run_main_path(tmp_path / "one", "cpu", 64, 48, 20.0,
+                                   20.0, mass_tol=0.1, sync="timestep")
+    res = chip_smoke.run_ranks_main_path(tmp_path / "two", 64, 48, 20.0,
+                                         ref_root=tmp_path / "one",
+                                         device="cpu", mass_tol=0.1)
+    assert (res["steps"], res["idle"]) == (one["steps"], one["idle"])
+    assert [r["rank"] for r in res["ranks"]] == [0, 1]
+    assert "comp" in res["members"] and res["checkpoint_mb"] > 0
+    assert not any(res["launches"].values())
+
+
+def test_ranks_stream_path_on_cpu(tmp_path):
+    """Phase 5h at 48x48, 20 s: the radar model streamed as a 2x2 mesh on
+    two ranks equals the one-process run in outputs, checkpoint members
+    and re-runs (checked inside)."""
+    res = chip_smoke.run_ranks_stream_path(tmp_path, 48, 48, 20.0, 10.0,
+                                           interval=10.0, device="cpu")
+    assert res["window"] == 3 and res["steps"] > 0
+    assert "comp" in res["members"] and "batch_skipped" in res["members"]

@@ -114,15 +114,6 @@ def test_reference_command_line_runs(tmp_path, capsys):
         np.testing.assert_allclose(got, jax, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("argv", [["--distributed", "env"]])
-def test_unported_flags_exit_1(tmp_path, argv, capsys):
-    build_dam_break(tmp_path)
-    rc = torch_main(["-c", str(tmp_path / "dam-break.xml"), "--platform",
-                     "cpu"] + argv)
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_io_mode_stream_equals_gather(tmp_path):
     """--io-mode stream exits 0 and writes every raster (4 targets x 4
     events) byte-equal to --io-mode gather's."""

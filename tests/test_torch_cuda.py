@@ -16,7 +16,11 @@ the Manning n, K5b also at chunk heights of 1 to 64 rows, and the
 recompute chain and K5b to split12.  In mesh mode (a halo-extended block:
 ``origin``, ``logical``, ``speed_window``) K1, K4, K3 and K5a-C equal their
 plain versions bit for bit, their owned cells equal the whole-grid
-kernel's, and the one-device defaults given outright change nothing.
+kernel's, and the one-device defaults given outright change nothing.  K1
+and the split12 pair K2 + K3 also match the port's numpy oracles
+(ops/oracle.py, ops/oracle_muscl.py: the JAX package's per-cell
+transcriptions of the reference) to 1e-12 in float64, a reference that
+does not share the plain versions' code.
 """
 
 import numpy as np
@@ -27,6 +31,8 @@ from chip_smoke import ONE_MANNING, patch_manning, random_domain
 from hipims_tpu_torch.ops.godunov import SchemeParams
 from hipims_tpu_torch.ops.kernels import muscl_split as ms
 from hipims_tpu_torch.ops.kernels import stencil as st
+from hipims_tpu_torch.ops.oracle import godunov_step_oracle
+from hipims_tpu_torch.ops.oracle_muscl import muscl_step_oracle
 from hipims_tpu_torch.ops.timestep import max_wave_speed
 from hipims_tpu_torch.parallel.halo_deep import extend
 from hipims_tpu_torch.state import DomainStatic, FlowState
@@ -100,6 +106,33 @@ def test_k1_matches_plain(mode):
     want = st.stencil_step_plain(state, static, dt, PARAMS, comp=comp)
     assert st.godunov_fused.launches == before + 1
     _assert_step_close(got, want, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock"])
+@pytest.mark.parametrize("friction", [True, False])
+@pytest.mark.parametrize("shape", [(32, 128), (65, 121)])
+def test_kernels_match_the_numpy_oracle(scheme, friction, shape):
+    """K1, and K2 + K3 (``muscl_step_split``, split12), in float64 on the
+    card against the per-cell oracle on the host."""
+    state, static, _, dt = _inputs("f64", *shape)
+    params = SchemeParams(2.0, 2.0, friction=friction)
+    if scheme == "godunov":
+        launches = (st.godunov_fused,)
+        before = [k.launches for k in launches]
+        got = st.stencil_step(scheme, state, static, dt, params)
+        oracle = godunov_step_oracle
+    else:
+        launches = (ms.muscl_predict, ms.muscl_correct)
+        before = [k.launches for k in launches]
+        got = ms.muscl_step_split(state, static, dt, params, "split12")
+        oracle = muscl_step_oracle
+    assert [k.launches for k in launches] == [b + 1 for b in before]
+    host = [a.cpu().numpy() for a in (*state, *static)]
+    want = oracle(*host, 0.05, 2.0, 2.0, friction=friction)
+    for g, w, name in zip(got[0], want, ("z", "zmax", "qx", "qy")):
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-12,
+                                   atol=1e-12, err_msg=name)
 
 
 @pytest.mark.cuda
