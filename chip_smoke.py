@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA port (hipims_tpu_torch) on one GPU.
+"""Smoke test of the PyTorch + CUDA port (hipims_tpu_torch) on the GPU.
 
-Run from the root of a checkout, on a machine with one CUDA card:
+Run from the root of a checkout, on a machine with one CUDA card (or
+several: phases 4k and 5i run only where two or more are visible, and
+print that they did not run otherwise):
 
     python3 chip_smoke.py
 
@@ -31,9 +33,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rasters every 300 s, run through ``hipims_tpu_torch.cli.main``; checks
    the rasters, the mass balance against rain minus loss, and that every
    step launched K1;
-4b. the same model with <scheme name="musclhancock">, 300 s simulated with
-   rasters every 150 s: every step launches K2 and K3 (the default
-   variant, split12);
+4b. the same model with <scheme name="musclhancock">, 150 s simulated with
+   one raster event: every step launches K2 and K3 (the default variant,
+   split12);
 4c. the MUSCL model with ``muscl_variant="recompute"`` through the
    embedding API (``hipims_tpu_torch.api.simulation_load(xml)
    .launch(blocking=False)``, polled to its end), 150 s: every step
@@ -41,7 +43,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    by ``field("depth")`` in an ``on_output`` callback is finite and holds
    the mass balance;
 4d. this slice's main path: the phase-4 model with <scheme
-   name="inertial">, 600 s with rasters every 300 s, through the CLI:
+   name="inertial">, 300 s with one raster event, through the CLI:
    every step launches K4 and no other scheme kernel; rasters, mass
    balance;
 4e. the Thamesmead-class breach (tools/bench_e2e.py's terrain and
@@ -50,15 +52,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    rasters every 300 s, through the CLI: every step launches K1; finite
    rasters; the volume positive and not falling from the first output
    event to the second; its ratio to 400 m3/s x t is printed;
-3d. K1, K4, K3 and K5a-C in mesh mode (a halo-extended block: its
+3d. K1, K4, K3, K5a-C and K5b in mesh mode (a halo-extended block: its
    origin, the logical grid and its owned cells) against their plain
    versions, f64 / f32 / f32c, on the four blocks of a 2x2 split of the
    2944x3072 random domain extended by window-8 pads (9 cells for K1 and
-   K4, 17 for the MUSCL correctors) into a zero frame, and on a ragged
+   K4, 17 for the MUSCL kernels) into a zero frame, and on a ragged
    1297x1681 south-east block; each block's owned cells must equal the
    whole-grid kernel's bit for bit; each kernel is timed at its default
    options on the whole grid (beside phase 3's time in the same run) and
-   in mesh mode over the four blocks;
+   in mesh mode over the four blocks, K5b's plain version too (the
+   kernels line's "muscl_fused_mesh");
 4f. a real model directory at 2944x3072 (write_radar_model): the
    phase-4 terrain as two overlapping ``<domain>`` row bands whose DEMs
    are HFA (.img) files, radar rain as ``<timeseries type="gridded">``
@@ -85,7 +88,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (the chunk copies summed, derive and write of the raster, gauge,
    device volume, checkpoint) and its largest chunk set;
 4g. the phase-4 model through the CLI with ``--mesh-shape 2x2`` (four
-   blocks on the card, lock-step: ``syncMethod="timestep"``), 300 s: its
+   blocks on the first card, however many are visible, lock-step:
+   ``syncMethod="timestep"``), 300 s: its
    300 s rasters bit-equal to phase 4's, the mass balance, 4 K1 launches
    per step; then the phase-4b MUSCL model so, 150 s, its rasters
    bit-equal to 4b's at 150 s;
@@ -102,14 +106,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 4j. the multi-process slice: the phase-4 model for 300 s (output at 300
    s, ``syncMethod="timestep"``) through the CLI as two ranks of one
    torch.distributed cluster (gloo), each a process of this script
-   (``--rank-worker``) sharing the card, ``--mesh-shape 2x1`` (one block
-   a rank, strips and maxima staged through the host) with
+   (``--rank-worker``) sharing the first card, ``--mesh-shape 2x1`` (one
+   block a rank, strips and maxima staged through the host) with
    ``--checkpoint``: the depth and maxdepth rasters at 300 s byte-equal
    to phase 4's, exactly one set of files and one whole checkpoint (t =
    300, no ``.part``), both ranks at the same t, steps and idle steps,
    their K1 launches summing to 2 x (steps + idle), the mass balance
    within phase 4's bar; prints the run time per step beside 4's and
-   4g's;
+   4g's, and the host reads in the steps (count_host_reads);
+4k. with two or more cards: the phase-4 model for 300 s, lock-step, as a
+   2x2 mesh over the cards with ``--checkpoint`` and fixed batches of 64
+   steps, (a) in one process (the four blocks dealt round-robin over the
+   cards: strips as peer copies) and (b) as one rank per card (four, or
+   two with two or three cards) under ``--distributed``, whose device
+   group must be NCCL (strips and maxima card to card).  Each: rasters
+   at 300 s byte-equal to phase 4's, a whole checkpoint, the mass
+   balance, K1 launches 4 x (steps + idle) summed over the ranks, the
+   same steps and idle steps, and no host read in the steps; prints
+   both per-step times beside 4's, 4g's and 4j's;
 5. the first slice whole: the phase-4 model at 128x128 and 120 s, in
    float64 ("double-strict"), on the card and on the CPU (plain
    versions); the final fields must agree within the f32c bounds; 5b: the
@@ -124,21 +138,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    per step and re-run step; 5h: 5g's model (f32c, streamed) as a 2x2
    mesh in forecast windows over two ranks (two blocks each) through the
    CLI, against the same command in one process: rasters, gauge CSV,
-   every checkpoint member and the re-run counts equal.  Both take fixed
-   batches of 8 windows (the scheme's queueSize), since each batch seeds
-   its first frozen-speed window afresh (ROADMAP.md section 3) and two
-   runs sized by their own clocks cannot be compared bit for bit.
+   every checkpoint member and the re-run counts equal; 5i, with two or
+   more cards: the same on one rank per card (the NCCL device group).
+   Both take fixed batches of 8 windows (the scheme's queueSize), since
+   each batch seeds its first frozen-speed window afresh (ROADMAP.md
+   section 3) and two runs sized by their own clocks cannot be compared
+   bit for bit.
    (In single precision the 1 mm rain films make any two f32
    implementations drift apart by ~1e-4 m within 120 s, because their
    exp/log differ by an ulp and implicit friction at h^-7/3 amplifies it:
    tests/test_torch_cli.py.)
 
-The line before the last is a JSON record of the seven kernels (with
-each kernel's launches in the mesh phases 4g, 4h, 4j, 5f, 5g and 5h); the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
-the package beside this file, it prints no result and exits with status
-2.  ``chip_smoke.py --rank-worker RANK ADDR:PORT CLI-ARGS...`` is one rank
-of phases 4j and 5h (``run_ranks``).
+The line before the last is a JSON record of the seven kernels and K5b's
+mesh mode (with each kernel's launches in the mesh phases 4g, 4h, 4j, 4k,
+5f, 5g, 5h and 5i); the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside this file, it prints no
+result and exits with status 2.  ``chip_smoke.py --rank-worker RANK RANKS
+ADDR:PORT CLI-ARGS...`` is one rank of phases 4j, 4k, 5h and 5i
+(``run_ranks``).
 Terrain and inputs are made from fixed seeds; nothing is downloaded.
 """
 
@@ -197,7 +214,7 @@ XML = """<?xml version="1.0"?>
         </data>
         <scheme name="{scheme}">
           <parameter name="courantNumber" value="0.5" />
-          <parameter name="frictionEffects" value="yes" />
+          <parameter name="frictionEffects" value="yes" />{queue}
         </scheme>
         <boundaryConditions sourceDir="boundaries/">
           <domainEdge edge="north" treatment="closed" />
@@ -249,12 +266,15 @@ def _write_dem(root, bed, dx):
 
 def write_glasgow_model(root, rows, cols, duration, outfreq,
                         precision="double", dx=2.0, scheme="godunov",
-                        sync=None):
+                        sync=None, queue_size=None):
     """Write the Glasgow-class model (the terrain and rain/drain of
     tools/bench_e2e.py build_glasgow_class) at any extent, with the XML's
     ``scheme`` name and, given ``sync``, ``<domainSet syncMethod>`` (a
-    mesh's exchange: none is the reference's default, "forecast");
-    returns the XML path.  Uses the port's own raster writer."""
+    mesh's exchange: none is the reference's default, "forecast"), and,
+    given ``queue_size``, the scheme's ``queueSize``: fixed batches of
+    that many steps (windows under a mesh) instead of batches sized by the
+    wall clock, so two runs end on the same idle steps; returns the XML
+    path.  Uses the port's own raster writer."""
     root = Path(root)
     _write_dem(root, glasgow_bed(rows, cols, dx), dx)
     (root / "boundaries" / "rain.csv").write_text(
@@ -266,7 +286,9 @@ def write_glasgow_model(root, rows, cols, duration, outfreq,
         name="glasgow-class", desc="Synthetic Glasgow-class pluvial model",
         duration=duration, outfreq=outfreq, precision=precision,
         manning=0.04, scheme=scheme, boundaries=RAIN_BOUNDARIES,
-        sync=f' syncMethod="{sync}"' if sync else ""))
+        sync=f' syncMethod="{sync}"' if sync else "",
+        queue="" if queue_size is None else
+        f'\n          <parameter name="queueSize" value="{queue_size}" />'))
     return xml
 
 
@@ -425,7 +447,7 @@ def write_thamesmead_model(root, rows, cols, duration, outfreq,
         name="thamesmead-class", desc="Synthetic Thamesmead-class breach",
         duration=duration, outfreq=outfreq, precision=precision,
         manning=0.035, scheme="godunov", boundaries=BREACH_BOUNDARY,
-        sync=""))
+        sync="", queue=""))
     return xml
 
 
@@ -702,6 +724,58 @@ def _read_launches():
     return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
+# The calls that read a tensor back to the host, or wait for the card.
+HOST_READS = ("item", "cpu", "tolist", "numpy", "__bool__", "__float__",
+              "__int__")
+
+
+@contextlib.contextmanager
+def count_host_reads():
+    """Count, while the block runs, the host reads made inside a mesh
+    run's batches (``HaloDeepBlocks.run_batch``: the steps, their
+    exchanges and maxima, and the batch's NaN probe): every call of the
+    HOST_READS methods of a tensor and of ``torch.cuda.synchronize``.
+    Yields a dict whose "reads" and "batches" grow as they happen; the
+    batch's own carry read (``Simulation._read_carry``) lies outside."""
+    import torch
+    from hipims_tpu_torch.parallel.halo_deep import HaloDeepBlocks
+
+    counts = dict(reads=0, batches=0, inside=False)
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+    own = {name: name in vars(torch.Tensor) for name in HOST_READS}
+    sync, run_batch = torch.cuda.synchronize, HaloDeepBlocks.run_batch
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            if counts["inside"]:
+                counts["reads"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def batch(self, *args, **kwargs):
+        counts["batches"] += 1
+        counts["inside"] = True
+        try:
+            return run_batch(self, *args, **kwargs)
+        finally:
+            counts["inside"] = False
+
+    try:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, counted(fn))
+        torch.cuda.synchronize = counted(sync)
+        HaloDeepBlocks.run_batch = batch
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            if own[name]:
+                setattr(torch.Tensor, name, fn)
+            else:
+                delattr(torch.Tensor, name)
+        torch.cuda.synchronize = sync
+        HaloDeepBlocks.run_batch = run_batch
+
+
 def _forced_volume(rows, cols, ring, duration):
     """Rain minus loss on the forced cells: the grid minus the scheme's
     static ring, which the closed-edge walls occupy."""
@@ -758,9 +832,10 @@ def _check_rasters(root, rows, cols, duration, outfreq):
 
 def run_main_path(root, device, rows, cols, duration, outfreq,
                   mass_tol=MASS_BALANCE_REL, scheme="godunov", sync=None,
-                  extra=()):
+                  extra=(), queue_size=None):
     """Phases 4, 4b, 4d and 4g: write the pluvial model with the XML's
-    ``scheme`` name (and ``sync``, see write_glasgow_model), run it through
+    ``scheme`` name (and ``sync`` and ``queue_size``, see
+    write_glasgow_model), run it through
     the CLI on ``device`` ("gpu" or "cpu") with the ``extra`` arguments,
     check outputs and mass balance.  Returns a dict of what it measured,
     with the launches of every kernel wrapper during the run.
@@ -772,7 +847,8 @@ def run_main_path(root, device, rows, cols, duration, outfreq,
     from hipims_tpu_torch.models import get_scheme
 
     xml = write_glasgow_model(root, rows, cols, duration, outfreq,
-                              scheme=scheme, sync=sync)
+                              scheme=scheme, sync=sync,
+                              queue_size=queue_size)
     res = _run_cli(xml, device, *extra)
     _check_rasters(root, rows, cols, duration, outfreq)
     vols, n_out = res["volumes"], int(round(duration / outfreq))
@@ -1095,11 +1171,11 @@ def phase_slice_gpu_vs_cpu(torch, xml):
     return g.total_steps, worst
 
 
-# Phase 3d: the four mesh-mode kernels, each as a step takes it (K3 and
+# Phase 3d: the five mesh-mode kernels, each as a step takes it (K3 and
 # K5a-C behind their predictor, whose planes the plain corrector is also
 # fed), with the mesh options ``mesh`` (none: the one-device defaults).
 MESH_KERNELS = ("godunov_fused", "inertial_fused", "muscl_correct",
-                "muscl_correct_recompute")
+                "muscl_correct_recompute", "muscl_fused")
 
 
 def _mesh_step(name, state, static, comp, dt, params, plain=False, pred=None,
@@ -1110,8 +1186,9 @@ def _mesh_step(name, state, static, comp, dt, params, plain=False, pred=None,
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
     from hipims_tpu_torch.ops.kernels import stencil as st
 
-    if name in ("godunov_fused", "inertial_fused"):
-        scheme = "godunov" if name == "godunov_fused" else "inertial"
+    if name in ("godunov_fused", "inertial_fused", "muscl_fused"):
+        scheme = {"godunov_fused": "godunov", "inertial_fused": "inertial",
+                  "muscl_fused": "muscl-hancock"}[name]
         fn = st.PLAIN[scheme] if plain else getattr(st, name)
         return fn(state, static, dt, params, comp=comp,
                   simplified_speed=scheme == "inertial", **mesh)
@@ -1121,7 +1198,7 @@ def _mesh_step(name, state, static, comp, dt, params, plain=False, pred=None,
 
 def _mesh_pred(name, state, static, dt, params):
     """The predictor planes kernel ``name`` takes (K2's for K3, K5a-P's
-    for K5a-C), from the predictor kernel; None for K1 and K4."""
+    for K5a-C), from the predictor kernel; None for K1, K4 and K5b."""
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
 
     if name == "muscl_correct":
@@ -1145,14 +1222,16 @@ def mesh_blocks(rows, cols, ragged=(1297, 1681)):
 
 
 def phase_mesh_vs_plain(torch, device, times):
-    """Phase 3d: K1, K4, K3 and K5a-C in mesh mode on the blocks of
+    """Phase 3d: K1, K4, K3, K5a-C and K5b in mesh mode on the blocks of
     mesh_blocks, each extended by its window-8 pads into a zero frame
     (parallel/halo_deep.py), against their plain versions with the same
     options; each block's owned cells and max speed must equal the
     whole-grid kernel's, bit for bit.  Times each kernel at its default
     options on the whole grid, beside phase 3's time (``times``) of the
-    same run, and in mesh mode over the four even blocks.  Returns the
-    largest |diff| per kernel and the times per (kernel, mode)."""
+    same run, and in mesh mode over the four even blocks (K5b's plain
+    version too, in f32c: the kernels line's entry for its mesh mode).
+    Returns the largest |diff| per kernel, the times per (kernel, mode)
+    and, for the four blocks, K5b's plain f32c ms and their cells."""
     from hipims_tpu_torch.ops.godunov import SchemeParams
     from hipims_tpu_torch.ops.timestep import max_wave_speed
     from hipims_tpu_torch.parallel.halo_deep import extend, halo_pads
@@ -1217,6 +1296,12 @@ def phase_mesh_vs_plain(torch, device, times):
                 _mesh_step(name, bs, bt, bc, dt, params, pred=bp, **m)
                 for bs, bt, bc, bp, m in runs[:4]], reps)
             mesh_times[(name, mode)] = (default_ms, mesh_ms)
+            if name == "muscl_fused" and mode == "f32c":
+                k5b_plain_ms = _time_ms(torch, lambda: [
+                    _mesh_step(name, bs, bt, bc, dt, params, plain=True,
+                               **m) for bs, bt, bc, _, m in runs[:4]],
+                    CASES[-1][3])
+                block_cells = sum(bs.z.numel() for bs, *_ in runs[:4])
         print(f"phase 3d: mesh-mode kernels vs plain, 2x2 blocks of "
               f"{rows}x{cols} + a ragged {owns[-1][1]}x{owns[-1][3]} block, "
               f"{mode}: agree "
@@ -1228,7 +1313,7 @@ def phase_mesh_vs_plain(torch, device, times):
                           f"{times[(n, rows, cols, mode)][0]:.4f} / "
                           f"{mesh_times[(n, mode)][1]:.4f}"
                           for n in MESH_KERNELS), flush=True)
-    return worst, mesh_times
+    return worst, mesh_times, (k5b_plain_ms, block_cells)
 
 
 def _same_rasters(label, root, ref_root, t):
@@ -1443,30 +1528,36 @@ def phase_oracle(torch, device, rows=256, cols=256):
 
 
 def rank_worker(argv):
-    """One rank of phases 4j and 5h: ``chip_smoke.py --rank-worker RANK
-    ADDR:PORT CLI-ARGS...`` runs the CLI in this process with
-    ``--distributed ADDR:PORT,2,RANK`` and prints its output, then one
+    """One rank of phases 4j, 4k, 5h and 5i: ``chip_smoke.py --rank-worker
+    RANK RANKS ADDR:PORT CLI-ARGS...`` runs the CLI in this process with
+    ``--distributed ADDR:PORT,RANKS,RANK`` and prints its output, then one
     line ``RANK_RESULT {json}``: this rank's kernel launches during the
-    CLI's run, its final carry (t, steps, idle steps), its windows re-run
-    and the CLI's wall seconds.  Returns the CLI's status."""
+    CLI's run, its final carry (t, steps, idle steps), its windows re-run,
+    the CLI's wall seconds, the process groups during the run
+    (``distributed.groups``) and the host reads inside its batches
+    (``count_host_reads``).  Returns the CLI's status."""
     from hipims_tpu_torch.cli import main as cli_main
+    from hipims_tpu_torch.parallel import distributed
     from hipims_tpu_torch.runtime import simulation
 
-    rank, coord, *args = argv
-    sims = []
+    rank, ranks, coord, *args = argv
+    sims, groups = [], {}
     run = simulation.Simulation.run
 
     def recorded_run(self, progress=None):
         sims.append(self)
+        groups.update(distributed.groups())
         return run(self, progress)
 
     simulation.Simulation.run = recorded_run
     _reset_launches()
     t0 = time.perf_counter()
-    rc = cli_main([*args, "--distributed", f"{coord},2,{rank}"])
+    with count_host_reads() as reads:
+        rc = cli_main([*args, "--distributed", f"{coord},{ranks},{rank}"])
     wall = time.perf_counter() - t0
     res = dict(rank=int(rank), rc=rc, wall_s=wall,
-               launches=_read_launches())
+               launches=_read_launches(), groups=groups,
+               reads=reads["reads"], batches=reads["batches"])
     if sims:
         sim = sims[-1]
         res.update(t=sim.t, steps=sim.total_steps, idle=sim.total_skipped,
@@ -1475,22 +1566,45 @@ def rank_worker(argv):
     return rc
 
 
-def run_ranks(label, args, timeout):
-    """Run the CLI with ``args`` as the two ranks of one cluster, each a
-    process of this script (``rank_worker``) on the one card, the
-    rendezvous on a free port of this host.  Raises if a rank fails or
-    outlives ``timeout`` seconds (every rank is killed then).  Returns
-    [(result, output)] by rank."""
+@contextlib.contextmanager
+def first_card_only(torch):
+    """While the block runs, ``torch.cuda.device_count()`` answers at most
+    1, so ``make_mesh`` deals every block to the first card: a phase that
+    measures a mesh on one card (4g) keeps its meaning where several are
+    visible."""
+    count = torch.cuda.device_count
+    torch.cuda.device_count = lambda: min(count(), 1)
+    try:
+        yield
+    finally:
+        torch.cuda.device_count = count
+
+
+def _first_card():
+    """The first visible CUDA card as CUDA_VISIBLE_DEVICES names it."""
+    return os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+
+
+def run_ranks(label, args, timeout, ranks=2, share_card=True):
+    """Run the CLI with ``args`` as the ``ranks`` ranks of one cluster, each
+    a process of this script (``rank_worker``), the rendezvous on a free
+    port of this host.  With ``share_card`` every rank sees only the first
+    card, so they share it (and the strips go through the host); without,
+    rank r takes card r.  Raises if a rank fails or outlives ``timeout``
+    seconds (every rank is killed then).  Returns [(result, output)] by
+    rank."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if share_card:
+        env["CUDA_VISIBLE_DEVICES"] = _first_card()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker",
-         str(r), f"127.0.0.1:{port}", *map(str, args)],
+         str(r), str(ranks), f"127.0.0.1:{port}", *map(str, args)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=ROOT) for r in (0, 1)]
+        env=env, cwd=ROOT) for r in range(ranks)]
     outs = []
     try:
         for p in procs:
@@ -1511,44 +1625,33 @@ def run_ranks(label, args, timeout):
     return res
 
 
-def run_ranks_main_path(root, rows, cols, duration, ref_root,
-                        device="gpu", mass_tol=MASS_BALANCE_REL):
-    """Phase 4j: the phase-4 model, lock-step, through the CLI on two
-    ranks with ``--mesh-shape 2x1`` and ``--checkpoint`` on ``device``
-    ("gpu" or "cpu"); checks the rasters against ``ref_root``'s (phase 4)
-    byte for byte, the files, the checkpoint, the ranks' agreement and
-    the mass balance.  Returns what it measured, with each rank's
-    result under "ranks"."""
+def _check_main_path_run(label, root, rows, cols, duration, ref_root,
+                         log, mass_tol):
+    """The checks a lock-step mesh run of the phase-4 model shares (4j,
+    4k): its depth and maxdepth rasters at ``duration``, the only files,
+    are ``ref_root``'s (phase 4) bytes; its checkpoint ``run.npz`` is
+    whole (one file, t = duration, the full grid); the mass balance in
+    ``log`` holds.  Returns (mass balance, run seconds, checkpoint
+    members, checkpoint MiB)."""
     from hipims_tpu_torch.models import get_scheme
 
     root = Path(root)
-    xml = write_glasgow_model(root, rows, cols, duration, duration,
-                              sync="timestep")
-    ck = root / "run.npz"
-    t0 = time.perf_counter()
-    ranks = run_ranks("phase 4j", ["-c", xml, "-n", "--mass-balance",
-                                   "--platform", device, "--mesh-shape",
-                                   "2x1", "--checkpoint", ck], 600)
-    wall = time.perf_counter() - t0
-    (r0, log), (r1, _) = ranks
-    if (r1["t"], r1["steps"], r1["idle"]) != (r0["t"], r0["steps"],
-                                              r0["idle"]):
-        raise RuntimeError(f"4j: the ranks disagree: {r0} / {r1}")
-    label = f"{duration:g}"
     files = sorted(p.name for p in (root / "output").iterdir())
-    if files != [f"depth_{label}.tif", f"maxdepth_{label}.tif"]:
-        raise RuntimeError(f"4j: output files {files}")
+    want = [f"depth_{duration:g}.tif", f"maxdepth_{duration:g}.tif"]
+    if files != want:
+        raise RuntimeError(f"{label}: output files {files}")
     for name in files:
         a = (root / "output" / name).read_bytes()
         if a != (Path(ref_root) / "output" / name).read_bytes():
-            raise RuntimeError(f"4j: {name} is not phase 4's bytes")
+            raise RuntimeError(f"{label}: {name} is not phase 4's bytes")
+    ck = root / "run.npz"
     if sorted(p.name for p in root.glob("run.npz*")) != ["run.npz"]:
-        raise RuntimeError(f"4j: checkpoint files "
+        raise RuntimeError(f"{label}: checkpoint files "
                            f"{sorted(root.glob('run.npz*'))}")
     with np.load(ck) as data:
         members = {k: data[k] for k in data.files}
     if float(members["t"]) != duration or members["z"].shape != (rows, cols):
-        raise RuntimeError(f"4j: checkpoint t={members['t']}, z "
+        raise RuntimeError(f"{label}: checkpoint t={members['t']}, z "
                            f"{members['z'].shape}")
     vols = [float(v) for v in re.findall(r"volume=([0-9.eE+-]+) m3", log)]
     run_s = float(re.search(r"Simulated:.* in ([0-9.]+) s wall",
@@ -1557,20 +1660,114 @@ def run_ranks_main_path(root, rows, cols, duration, ref_root,
                               duration)
     rel = (vols[-1] - expected) / expected
     if abs(rel) > mass_tol:
-        raise RuntimeError(f"4j: mass balance off by {rel:+.4%}")
+        raise RuntimeError(f"{label}: mass balance off by {rel:+.4%}")
+    return rel, run_s, sorted(members), ck.stat().st_size / 2 ** 20
+
+
+def run_ranks_main_path(root, rows, cols, duration, ref_root,
+                        device="gpu", mass_tol=MASS_BALANCE_REL,
+                        label="4j", shape="2x1", ranks=2, share_card=True,
+                        queue_size=None):
+    """Phases 4j and 4k (b): the phase-4 model, lock-step, through the CLI
+    on ``ranks`` ranks with ``--mesh-shape shape`` and ``--checkpoint`` on
+    ``device`` ("gpu" or "cpu"), sharing the first card (4j) or one card a
+    rank (4k); checks the run (``_check_main_path_run``) and the ranks'
+    agreement.  Returns what it measured, with each rank's result under
+    "ranks"."""
+    root = Path(root)
+    xml = write_glasgow_model(root, rows, cols, duration, duration,
+                              sync="timestep", queue_size=queue_size)
+    t0 = time.perf_counter()
+    out = run_ranks(f"phase {label}", [
+        "-c", xml, "-n", "--mass-balance", "--platform", device,
+        "--mesh-shape", shape, "--checkpoint", root / "run.npz"],
+        600, ranks=ranks, share_card=share_card)
+    wall = time.perf_counter() - t0
+    res = [r for r, _ in out]
+    r0, log = out[0]
+    for r in res[1:]:
+        if (r["t"], r["steps"], r["idle"]) != (r0["t"], r0["steps"],
+                                              r0["idle"]):
+            raise RuntimeError(f"{label}: the ranks disagree: {r0} / {r}")
+    rel, run_s, members, ck_mb = _check_main_path_run(
+        label, root, rows, cols, duration, ref_root, log, mass_tol)
     return dict(steps=r0["steps"], idle=r0["idle"], rel=rel, run_s=run_s,
-                wall_s=wall, rank_walls=[r0["wall_s"], r1["wall_s"]],
-                ranks=[r0, r1],
-                launches={n: r0["launches"][n] + r1["launches"][n]
+                wall_s=wall, rank_walls=[r["wall_s"] for r in res],
+                ranks=res, groups=r0["groups"],
+                reads=sum(r["reads"] for r in res),
+                launches={n: sum(r["launches"][n] for r in res)
                           for n in r0["launches"]},
-                members=sorted(members), checkpoint_mb=ck.stat().st_size
-                / 2 ** 20)
+                members=members, checkpoint_mb=ck_mb)
+
+
+def not_run(label, cards):
+    """The line a phase that needs several cards (4k, 5i) prints in their
+    place where fewer than two are visible, or None where it runs."""
+    if cards >= 2:
+        return None
+    return f"phase {label}: not run: needs 2+ CUDA devices, {cards} visible"
+
+
+def run_cards_main_path(root, rows, cols, duration, ref_root, cards,
+                        device="gpu", mass_tol=MASS_BALANCE_REL,
+                        queue_size=64):
+    """Phase 4k: the phase-4 model, lock-step, as a 2x2 mesh over
+    ``cards`` cards (2 or more), with ``--checkpoint``: (a) in one
+    process, the CLI here, its four blocks dealt round-robin over the
+    visible cards; (b) on one rank per card under ``--distributed``
+    (four ranks, or two with fewer than four cards), whose device group
+    must be NCCL on the card.  Both take fixed batches of ``queue_size``
+    steps, so they end on the same idle steps.  Each run's rasters must be
+    ``ref_root``'s (phase 4) bytes, its checkpoint whole, its mass balance
+    within ``mass_tol``, its K1 launches 4 x (steps + idle) summed over
+    the ranks, its steps and idle steps the other's, and its steps make
+    no host read (``count_host_reads``).  Returns {"a": ..., "b": ...}."""
+    root = Path(root)
+    xml = write_glasgow_model(root / "a", rows, cols, duration, duration,
+                              sync="timestep", queue_size=queue_size)
+    with count_host_reads() as reads:
+        a = _run_cli(xml, device, "--mesh-shape", "2x2", "--checkpoint",
+                     str(root / "a" / "run.npz"))
+    a["rel"], a["run_s"], a["members"], a["checkpoint_mb"] = \
+        _check_main_path_run("4k (a)", root / "a", rows, cols, duration,
+                             ref_root, a["log"], mass_tol)
+    a.update(reads=reads["reads"], devices=sorted(set(re.findall(
+        r"\s(cuda:\d+|cpu)\s+\(\d+,\d+\)\s", a["log"]))))
+    b = run_ranks_main_path(root / "b", rows, cols, duration, ref_root,
+                            device=device, mass_tol=mass_tol, label="4k (b)",
+                            shape="2x2", ranks=4 if cards >= 4 else 2,
+                            share_card=False, queue_size=queue_size)
+    # On the CPU (a rehearsal) nothing launches, and the ranks have no
+    # device group: their maxima go through the host.
+    on_card = device == "gpu"
+    want_group = "nccl" if on_card else None
+    for label, r in (("(a)", a), ("(b)", b)):
+        total = r["steps"] + r["idle"]
+        if on_card:
+            _expect_launches(f"phase 4k {label}", r["launches"],
+                             {"godunov_fused": 4 * total})
+        if r["reads"] and (on_card or r is a):
+            raise RuntimeError(f"phase 4k {label}: {r['reads']} host reads "
+                               f"in {total} lock-step steps")
+    if device == "gpu" and len(a["devices"]) != min(cards, 4):
+        raise RuntimeError(f"phase 4k (a): blocks on {a['devices']}")
+    for r in b["ranks"]:
+        if r["groups"].get("device") != want_group:
+            raise RuntimeError(f"phase 4k (b): rank {r['rank']}'s groups "
+                               f"{r['groups']}, expected the device group "
+                               f"{want_group}")
+    if (b["steps"], b["idle"]) != (a["steps"], a["idle"]):
+        raise RuntimeError(f"phase 4k: (b) took {b['steps']} (+{b['idle']}) "
+                           f"steps, (a) {a['steps']} (+{a['idle']})")
+    return dict(a=a, b=b)
 
 
 def run_ranks_stream_path(root, rows, cols, duration, outfreq,
-                          interval=60.0, rain_cell=50.0, device="gpu"):
-    """Phase 5h: phase 5g's model (streamed, a 2x2 mesh in forecast
-    windows, fixed batches of 8 windows) through the CLI on two ranks
+                          interval=60.0, rain_cell=50.0, device="gpu",
+                          label="5h", ranks=2, share_card=True):
+    """Phases 5h and 5i: phase 5g's model (streamed, a 2x2 mesh in
+    forecast windows, fixed batches of 8 windows) through the CLI on
+    ``ranks`` ranks (sharing the first card, 5h, or one card a rank, 5i)
     into output/, and in one process into output_b/, each with a
     checkpoint; rasters, gauge CSV, checkpoint members and re-runs must
     be equal.  Returns what it measured."""
@@ -1589,29 +1786,33 @@ def run_ranks_stream_path(root, rows, cols, duration, outfreq,
                    str(root / "one.npz"))
     one_reruns = int(re.search(r"Windows re-run: (\d+)", one["log"])
                      .group(1))
-    ranks = run_ranks("phase 5h", ["-c", xml, "-n", *args, "--checkpoint",
-                                   root / "two.npz"], 300)
-    (r0, _), (r1, _) = ranks
-    if not (r0["reruns"] == r1["reruns"] == one_reruns
-            and r0["steps"] == r1["steps"] == one["steps"]
-            and r0["idle"] == r1["idle"] == one["idle"]):
-        raise RuntimeError(f"5h: ranks {r0} / {r1} against one process: "
+    out = run_ranks(f"phase {label}", ["-c", xml, "-n", *args,
+                                       "--checkpoint", root / "two.npz"],
+                    300, ranks=ranks, share_card=share_card)
+    res = [r for r, _ in out]
+    if not all(r["reruns"] == one_reruns and r["steps"] == one["steps"]
+               and r["idle"] == one["idle"] for r in res):
+        raise RuntimeError(f"{label}: ranks {res} against one process: "
                            f"{one['steps']} steps, {one['idle']} idle, "
                            f"{one_reruns} re-runs")
     g, s = ({p.name: p.read_bytes() for p in (root / d).iterdir()}
             for d in ("output", "output_b"))
     if len(g) != int(round(duration / outfreq)) + 1 or g != s:
-        raise RuntimeError(f"5h: two ranks' outputs {sorted(g)} are not the "
-                           f"one process's bytes {sorted(s)}")
+        raise RuntimeError(f"{label}: the ranks' outputs {sorted(g)} are not "
+                           f"the one process's bytes {sorted(s)}")
     with np.load(root / "two.npz") as a, np.load(root / "one.npz") as b:
         differ = {k: _max_diff(a[k], b[k]) for k in b.files
                   if k not in a.files or not np.array_equal(a[k], b[k])}
         if a.files != b.files or differ:
-            raise RuntimeError(f"5h: checkpoint members differ: {differ}")
+            raise RuntimeError(f"{label}: checkpoint members differ: "
+                               f"{differ}")
         members = a.files
+    r0 = res[0]
     return dict(steps=r0["steps"], idle=r0["idle"], reruns=one_reruns,
-                window=r0["window"], members=members,
-                launches={n: r0["launches"][n] + r1["launches"][n]
+                window=r0["window"], members=members, groups=r0["groups"],
+                ranks=res, reads=sum(r["reads"] for r in res),
+                batches=r0["batches"],
+                launches={n: sum(r["launches"][n] for r in res)
                           for n in r0["launches"]},
                 one_launches=one["launches"])
 
@@ -1712,12 +1913,17 @@ KERNEL_SOURCES = {
 }
 
 
-def kernels_record(times, err, launches, cells, share, mesh_launches):
+def kernels_record(times, err, launches, cells, share, mesh_launches,
+                   k5b_mesh=None):
     """The kernels line's entries: for each kernel its f32c kernel and
     plain times at ``cells`` cells (``times`` by (name, rows, cols,
     mode)), its largest |diff| against the plain version, its launches on
     its main path and in the mesh phases (``mesh_launches``), and its
-    bound computed for these inputs."""
+    bound computed for these inputs.  ``k5b_mesh`` (phase 3d: ms,
+    plain_ms, cells, err, launches) adds K5b's mesh mode as an entry of
+    its own, "muscl_fused_mesh": its f32c times over the four blocks of a
+    2x2 split, its bound for their cells and its launches in 3d (it runs
+    at op level only, as in the JAX package)."""
     record = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         (k_ms, p_ms), = [t for (n, r, c, m), t in times.items()
@@ -1730,6 +1936,18 @@ def kernels_record(times, err, launches, cells, share, mesh_launches):
             launches=launches[name], max_abs_err=err[name], ms=k_ms,
             plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
             library_ms=None, mesh_launches=mesh_launches[name]))
+    if k5b_mesh is not None:
+        bound, bound_by = kernel_bound("muscl_fused", "f32c",
+                                       k5b_mesh["cells"], share)
+        source, replaces = KERNEL_SOURCES["muscl_fused"]
+        record.append(dict(
+            name="muscl_fused_mesh", route="cuda",
+            source=f"hipims_tpu_torch/csrc/{source}",
+            replaces=f"hipims_tpu/ops/pallas/{replaces}",
+            launches=k5b_mesh["launches"], max_abs_err=k5b_mesh["err"],
+            ms=k5b_mesh["ms"], plain_ms=k5b_mesh["plain_ms"],
+            bound_ms=bound, bound_by=bound_by, library_ms=None,
+            mesh_launches=k5b_mesh["launches"]))
     return record
 
 
@@ -1787,9 +2005,20 @@ def main() -> int:
     err.update(err_c)
     times.update(times_c)
     times.update(muscl_times)
-    # Phase 3d: K1, K4, K3 and K5a-C in mesh mode (its launches are not a
-    # main path's).
-    mesh_err, _ = phase_mesh_vs_plain(torch, device, times)
+    # Phase 3d: K1, K4, K3, K5a-C and K5b in mesh mode (its launches are
+    # not a main path's; K5b's are its mesh mode's, op level only).
+    _reset_launches()
+    mesh_err, mesh_times, (k5b_plain_ms, block_cells) = \
+        phase_mesh_vs_plain(torch, device, times)
+    k5b_mesh = dict(ms=mesh_times[("muscl_fused", "f32c")][1],
+                    plain_ms=k5b_plain_ms, cells=block_cells,
+                    err=mesh_err["muscl_fused"],
+                    launches=_read_launches()["muscl_fused"])
+    print(f"phase 3d: K5b in mesh mode bit-equal to its plain version in "
+          f"f64, f32 and f32c; f32c over the four 2x2 blocks "
+          f"{k5b_mesh['ms']:.4f} ms (plain {k5b_plain_ms:.4f}), whole grid "
+          f"{mesh_times[('muscl_fused', 'f32c')][0]:.4f}; "
+          f"{k5b_mesh['launches']} launches", flush=True)
     for name, e in mesh_err.items():
         err[name] = max(err[name], e)
     # Phase 3e: K1 and K2 + K3 against the numpy oracles (comparisons, not
@@ -1814,11 +2043,11 @@ def main() -> int:
 
         # Phase 4b: the MUSCL main path (default variant split12).
         res_b = run_main_path(Path(tmp) / "muscl", "gpu", rows, cols,
-                              300.0, 150.0, scheme="musclhancock")
+                              150.0, 150.0, scheme="musclhancock")
         total = res_b["steps"] + res_b["idle"]
         _expect_launches("phase 4b", res_b["launches"], {
             "muscl_predict": total, "muscl_correct": total})
-        print(_main_path_line("phase 4b: MUSCL main path", rows, cols, 300.0,
+        print(_main_path_line("phase 4b: MUSCL main path", rows, cols, 150.0,
                               res_b, smi), flush=True)
 
         # Phase 4c: the recompute variant through the embedding API.
@@ -1836,11 +2065,11 @@ def main() -> int:
 
         # Phase 4d: this slice's main path, the partial-inertial scheme.
         res_d = run_main_path(Path(tmp) / "inertial", "gpu", rows, cols,
-                              600.0, 300.0, scheme="inertial")
+                              300.0, 300.0, scheme="inertial")
         _expect_launches("phase 4d", res_d["launches"], {
             "inertial_fused": res_d["steps"] + res_d["idle"]})
         print(_main_path_line("phase 4d: inertial main path", rows, cols,
-                              600.0, res_d, smi), flush=True)
+                              300.0, res_d, smi), flush=True)
 
         # Phase 4e: the breach, a per-cell boundary, on the Godunov kernel.
         res_e = run_breach_path(Path(tmp) / "breach", "gpu", rows, cols,
@@ -1887,16 +2116,19 @@ def main() -> int:
         # Phase 4g: phases 4 and 4b as a 2x2 mesh of blocks on the card,
         # lock-step, their rasters bit-equal to the one-device runs'.
         mesh_launches = {n: 0 for n in kernel_wrappers()}
-        res_g = run_main_path(Path(tmp) / "mesh", "gpu", rows, cols, 300.0,
-                              300.0, sync="timestep",
-                              extra=("--mesh-shape", "2x2"))
+        with first_card_only(torch):
+            res_g = run_main_path(Path(tmp) / "mesh", "gpu", rows, cols,
+                                  300.0, 300.0, sync="timestep",
+                                  extra=("--mesh-shape", "2x2"))
         _expect_launches("phase 4g", res_g["launches"], {
             "godunov_fused": 4 * (res_g["steps"] + res_g["idle"])})
         _same_rasters("phase 4g", Path(tmp) / "mesh", Path(tmp) / "main",
                       300.0)
-        res_gb = run_main_path(Path(tmp) / "mesh_muscl", "gpu", rows, cols,
-                               150.0, 150.0, scheme="musclhancock",
-                               sync="timestep", extra=("--mesh-shape", "2x2"))
+        with first_card_only(torch):
+            res_gb = run_main_path(Path(tmp) / "mesh_muscl", "gpu", rows,
+                                   cols, 150.0, 150.0, scheme="musclhancock",
+                                   sync="timestep",
+                                   extra=("--mesh-shape", "2x2"))
         total = 4 * (res_gb["steps"] + res_gb["idle"])
         _expect_launches("phase 4g MUSCL", res_gb["launches"], {
             "muscl_predict": total, "muscl_correct": total})
@@ -1904,7 +2136,7 @@ def main() -> int:
                       Path(tmp) / "muscl", 150.0)
         for label, r, one, dur, one_dur in (
                 ("Godunov", res_g, res, 300.0, 600.0),
-                ("MUSCL", res_gb, res_b, 150.0, 300.0)):
+                ("MUSCL", res_gb, res_b, 150.0, 150.0)):
             for n, c in r["launches"].items():
                 mesh_launches[n] += c
             print(_main_path_line(f"phase 4g: {label} as a 2x2 mesh "
@@ -1999,7 +2231,44 @@ def main() -> int:
               + f" s, phase wall {res_j['wall_s']:.1f} s; run per step "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in per_step.items())
               + f"; launches: godunov_fused "
-              f"{res_j['launches']['godunov_fused']}; on {smi}", flush=True)
+              f"{res_j['launches']['godunov_fused']}; host reads in the "
+              f"steps {res_j['reads']} (both ranks, "
+              f"{res_j['reads'] / (res_j['steps'] + res_j['idle']):.3f} per "
+              f"step); on {smi}", flush=True)
+
+        # Phase 4k: phase 4's model as a 2x2 mesh over the cards, in one
+        # process and on one rank per card (the NCCL device group).
+        cards = torch.cuda.device_count()
+        if not_run("4k", cards):
+            print(not_run("4k", cards), flush=True)
+        else:
+            res_k = run_cards_main_path(Path(tmp) / "cards", rows, cols,
+                                        300.0, Path(tmp) / "main", cards)
+            for r in (res_k["a"], res_k["b"]):
+                for n, c in r["launches"].items():
+                    mesh_launches[n] += c
+            per_step.update({
+                label: r["run_s"] / (r["steps"] + r["idle"]) * 1e3
+                for label, r in (("4k (a)", res_k["a"]),
+                                 ("4k (b)", res_k["b"]))})
+            a, b = res_k["a"], res_k["b"]
+            print(f"phase 4k: main path as a 2x2 mesh over {cards} cards "
+                  f"{rows}x{cols} f32c, 300 s simulated, lock-step: (a) one "
+                  f"process, blocks on {', '.join(a['devices'])}; (b) "
+                  f"{len(b['ranks'])} ranks, one card each, device group "
+                  f"{b['groups']['device']}; both {a['steps']} steps "
+                  f"(+{a['idle']} idle), rasters at 300 s byte-equal to "
+                  f"phase 4's, checkpoints whole ({len(b['members'])} "
+                  f"members), mass balance (a) {a['rel']:+.4%} (b) "
+                  f"{b['rel']:+.4%}; host reads in the steps: (a) "
+                  f"{a['reads']}, (b) {b['reads']} over "
+                  f"{b['steps'] + b['idle']} steps; K1 launches (a) "
+                  f"{a['launches']['godunov_fused']} (b) "
+                  f"{b['launches']['godunov_fused']}; run with outputs (a) "
+                  f"{a['run_s']:.1f} s (b) {b['run_s']:.1f} s; run per "
+                  "step "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in per_step.items())
+                  + f"; on {smi}", flush=True)
 
         # Phase 5: the slices whole, card against CPU at 128x128, 120 s,
         # float64: 5 Godunov, 5b MUSCL, 5c inertial, 5d the breach.
@@ -2048,6 +2317,32 @@ def main() -> int:
               f"{res_5g['launches']['godunov_fused']}", flush=True)
         res_5h = run_ranks_stream_path(Path(tmp) / "ranks_stream", 128, 128,
                                        120.0, 60.0)
+        if not_run("5i", cards):
+            print(not_run("5i", cards), flush=True)
+        else:
+            res_5i = run_ranks_stream_path(
+                Path(tmp) / "cards_stream", 128, 128, 120.0, 60.0,
+                label="5i", ranks=4 if cards >= 4 else 2, share_card=False)
+            if any(r["groups"].get("device") != "nccl"
+                   for r in res_5i["ranks"]):
+                raise RuntimeError(f"5i: the ranks' groups "
+                                   f"{[r['groups'] for r in res_5i['ranks']]}")
+            for n, c in res_5i["launches"].items():
+                mesh_launches[n] += c
+            _expect_launches("phase 5i", res_5i["launches"], {
+                "godunov_fused": 4 * (res_5i["steps"] + res_5i["idle"]
+                                      + res_5i["window"]
+                                      * res_5i["reruns"])})
+            print(f"phase 5i: radar model 128x128 f32c streamed as a 2x2 mesh "
+                  f"on {len(res_5i['ranks'])} ranks, one card each (device "
+                  f"group nccl), against one process: rasters, gauge CSV "
+                  f"and all {len(res_5i['members'])} checkpoint members "
+                  f"equal; {res_5i['steps']} steps (+{res_5i['idle']} "
+                  f"idle), window {res_5i['window']}, {res_5i['reruns']} "
+                  f"re-runs on every rank; host reads in the batches "
+                  f"{res_5i['reads']} over the ranks ({res_5i['batches']} "
+                  f"batches a rank); launches: godunov_fused "
+                  f"{res_5i['launches']['godunov_fused']}", flush=True)
         for n, c in res_5h["launches"].items():
             mesh_launches[n] += c
         for label, launches in (("5h ranks", res_5h["launches"]),
@@ -2074,7 +2369,7 @@ def main() -> int:
         "inertial_fused": res_d["launches"]["inertial_fused"],
         "muscl_fused": k5b_launches}
     record = kernels_record(times, err, launches, rows * cols, share,
-                            mesh_launches)
+                            mesh_launches, k5b_mesh)
     print(f"K5b vs split12 max|diff| {split_diff:.3e}; second-order share "
           f"of the random domain {share:.4f}; chip_smoke wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

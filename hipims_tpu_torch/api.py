@@ -224,6 +224,16 @@ def device_count() -> int:
     return torch.cuda.device_count()
 
 
+def cluster_groups() -> dict:
+    """The process groups of a multi-process run
+    (``parallel.distributed.groups``): ``world``, the gloo group's backend,
+    and ``device``, "nccl" where every rank holds a card of its own and
+    the halo strips and maxima move card to card, None where they go
+    through the host; both None in one process."""
+    from .parallel.distributed import groups
+    return groups()
+
+
 def device_name(index: int = 0) -> str:
     """Reference: GetDeviceName (src/main.cpp:262-292)."""
     return torch.cuda.get_device_name(index)

@@ -19,12 +19,15 @@ writes every output event from bounded row chunks
 (runtime/sharded_io.py), on one device and under a mesh.
 
 ``--distributed`` runs one process per rank under torch.distributed
-(gloo; parallel/distributed.py), every rank with the same arguments but
-its own process id: the mesh's blocks are dealt out to the ranks (each
-rank's on its own device, ``cuda:(LOCAL_RANK or rank) % count``), and
-without ``--mesh`` every rank runs the whole grid.  Rank 0 alone logs and
-writes files; every rank runs the output events, whose reads are
-collective.
+(parallel/distributed.py), every rank with the same arguments but its own
+process id: the mesh's blocks are dealt out to the ranks (each rank's on
+its own device, ``cuda:(LOCAL_RANK or rank) % count``), and without
+``--mesh`` every rank runs the whole grid.  The world group is gloo; where
+every rank holds a card of its own, a device group under NCCL moves the
+halo strips and maxima card to card, and where ranks share a card (or on
+the CPU) they go through the host: the placement decides, and the log's
+``Cluster:`` line says which.  Rank 0 alone logs and writes files; every
+rank runs the output events, whose reads are collective.
 """
 
 from __future__ import annotations
@@ -102,15 +105,14 @@ def main(argv=None):
             distributed.barrier()
         return rc
     finally:
-        import torch.distributed as dist
-        dist.destroy_process_group()
+        distributed.shutdown()
 
 
 def _main(args, cluster: bool):
     """The run; ``cluster`` when this process is one rank of several."""
     from .io.xml_config import load_config
-    from .parallel.distributed import host_summary, is_coordinator, \
-        rank_device
+    from .parallel.distributed import (host_summary, is_coordinator,
+                                       open_groups, rank_device)
     from .runtime.progress import ProgressReporter
     from .utils.logging import Logger
 
@@ -125,13 +127,6 @@ def _main(args, cluster: bool):
                  "use --distributed (rank gating is automatic)")
     if args.code_dir:
         log.line("note: --code-dir ignored (no OpenCL sources to locate)")
-    if cluster:
-        summary = host_summary()
-        log.line(f"  Cluster:     {summary['process_count']} ranks, "
-                 f"backend {summary['backend']}, "
-                 f"{summary['global_device_count']} device(s) as the ranks "
-                 "see them")
-
     try:
         model = load_config(args.config_file)
     except FileNotFoundError as e:
@@ -148,6 +143,18 @@ def _main(args, cluster: bool):
                       "plain versions on the CPU")
             return 1
     device = rank_device(args.platform)
+    if cluster:
+        # The census picks the device group (collective on every rank).
+        open_groups(args.platform)
+        summary = host_summary()
+        strips = ("card to card" if summary["device_backend"]
+                  else "through the host")
+        log.line(f"  Cluster:     {summary['process_count']} ranks, "
+                 f"backend {summary['backend']}, device group "
+                 f"{summary['device_backend'] or 'none'} (strips and "
+                 f"maxima {strips}), "
+                 f"{summary['global_device_count']} device(s) as the ranks "
+                 "see them")
 
     log.line(f"  Name:        {model.name}")
     log.line(f"  Scheme:      {model.config.scheme}")

@@ -524,12 +524,11 @@ int correct(const T* z, const T* zmax, const T* qx, const T* qy, const T* zb,
                                                       grid_x, grid_y)) {
     return (int)cudaErrorInvalidValue;
   }
-  // K5b (PREDICTED) runs on no mesh path: one instantiation.
+  // The one-device window runs the MESH = false instantiation, so a mesh
+  // option costs a one-device step nothing (march.cuh is_whole_grid).
   auto kernel = muscl_correct_kernel<T, COMP, SLOPES, false>;
-  if constexpr (SLOPES != PREDICTED) {
-    if (!swe::is_whole_grid(m, rows, cols)) {
-      kernel = muscl_correct_kernel<T, COMP, SLOPES, true>;
-    }
+  if (!swe::is_whole_grid(m, rows, cols)) {
+    kernel = muscl_correct_kernel<T, COMP, SLOPES, true>;
   }
   kernel<<<dim3(grid_x, grid_y), dim3(swe::MARCH_THREADS), 0,
            (cudaStream_t)stream>>>(
@@ -634,26 +633,30 @@ int muscl_correct_f64(const double* z, const double* zmax, const double* qx,
 
 // K5b: the whole step from the state, the corrector with slopes and base
 // PREDICTED (no predictor plane).  chunk, grid_x, grid_y: march_geometry
-// with two halo lanes, as K5a-C.  No mesh path runs it: the whole grid.
+// with two halo lanes, as K5a-C; MESH_WINDOW_ARGS as for the correctors.
+// In mesh mode the predictor's edge test (on_edge_ring) stays on the
+// array's own one-cell ring, as the TPU kernel predicts the extended block
+// whole: a cell it flattens there feeds only cells of the frozen two-cell
+// ring, and the logical ring is frozen beside it (MeshLane::frozen).
 int muscl_fused_f32(const float* z, const float* zmax, const float* qx,
                     const float* qy, const float* zb, const float* n,
                     const float* comp, float* z_out, float* zmax_out,
                     float* qx_out, float* qy_out, float* comp_out,
                     float* speeds, const float* dt, int rows, int cols,
-                    int chunk, int grid_x, int grid_y, double inv_dx,
-                    double inv_dy, double vs, double qs, int friction,
-                    void* stream) {
+                    int chunk, int grid_x, int grid_y, MESH_WINDOW_ARGS,
+                    double inv_dx, double inv_dy, double vs, double qs,
+                    int friction, void* stream) {
   if (comp != nullptr) {
     return correct<float, true, PREDICTED>(
         z, zmax, qx, qy, zb, n, nullptr, comp, z_out, zmax_out, qx_out,
         qy_out, comp_out, speeds, dt, rows, cols, chunk, grid_x, grid_y,
-        swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+        MESH_WINDOW, inv_dx, inv_dy, vs, qs, friction,
         stream);
   }
   return correct<float, false, PREDICTED>(
       z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
       qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y,
-      swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+      MESH_WINDOW, inv_dx, inv_dy, vs, qs, friction,
       stream);
 }
 
@@ -662,12 +665,12 @@ int muscl_fused_f64(const double* z, const double* zmax, const double* qx,
                     double* z_out, double* zmax_out, double* qx_out,
                     double* qy_out, double* speeds, const double* dt,
                     int rows, int cols, int chunk, int grid_x, int grid_y,
-                    double inv_dx, double inv_dy, double vs, double qs,
-                    int friction, void* stream) {
+                    MESH_WINDOW_ARGS, double inv_dx, double inv_dy,
+                    double vs, double qs, int friction, void* stream) {
   return correct<double, false, PREDICTED>(
       z, zmax, qx, qy, zb, n, nullptr, nullptr, z_out, zmax_out, qx_out,
       qy_out, nullptr, speeds, dt, rows, cols, chunk, grid_x, grid_y,
-      swe::whole_grid(rows, cols), inv_dx, inv_dy, vs, qs, friction,
+      MESH_WINDOW, inv_dx, inv_dy, vs, qs, friction,
       stream);
 }
 

@@ -27,12 +27,12 @@ one-cell edge ring hold the first-order placeholder (z, z - zb, qx, qy)
 and zero slopes.
 
 On a mesh block (``parallel/halo_deep.py``) the correctors K3 and K5a-C
-take the mesh options ``origin``, ``logical`` and ``speed_window``
-(``common.mesh_window``): the logical grid's two-cell ring is frozen in
-global coordinates, beside the array's own, and the CFL max covers the
-owned cells.  The predictors take none, as in the JAX package: they run
-unchanged on the extended block, and the rebuilt slopes' edge test stays
-on the array's own ring.
+and the whole step K5b take the mesh options ``origin``, ``logical`` and
+``speed_window`` (``common.mesh_window``): the logical grid's two-cell
+ring is frozen in global coordinates, beside the array's own, and the CFL
+max covers the owned cells.  The predictors take none, as in the JAX
+package: they run unchanged on the extended block, and the rebuilt (and
+K5b's predicted) slopes' edge test stays on the array's own ring.
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ _D = ctypes.c_double
 _PREDICT_ARGS = [_P] * 6 + [_I, _P, _I, _I] + [_D] * 3 + [_P]
 _CORRECT_F32_ARGS = [_P] * 15 + [_I] * 13 + [_D] * 4 + [_I, _I, _P]
 _CORRECT_F64_ARGS = [_P] * 13 + [_I] * 13 + [_D] * 4 + [_I, _I, _P]
-_FUSED_F32_ARGS = [_P] * 14 + [_I] * 5 + [_D] * 4 + [_I, _P]
-_FUSED_F64_ARGS = [_P] * 12 + [_I] * 5 + [_D] * 4 + [_I, _P]
+_FUSED_F32_ARGS = [_P] * 14 + [_I] * 13 + [_D] * 4 + [_I, _P]
+_FUSED_F64_ARGS = [_P] * 12 + [_I] * 13 + [_D] * 4 + [_I, _P]
 
 
 @functools.cache
@@ -145,12 +145,15 @@ def muscl_correct_plain(state: FlowState, static, pred, dt,
 
 
 def muscl_step_plain(state: FlowState, static, dt, params: SchemeParams,
-                     comp=None, simplified_speed=False):
+                     comp=None, simplified_speed=False, origin=None,
+                     logical=None, speed_window=None):
     """The plain version of K5b, on any device: the whole-grid MUSCL-
-    Hancock step, then the max wave speed over the new state."""
+    Hancock step, then the max wave speed over the new state (with the
+    mesh options, ``common.plain_step_result``)."""
     return plain_step_result(state, muscl_step(state, static, dt, params,
                                                comp=comp),
-                             comp, static, params, simplified_speed, RING)
+                             comp, static, params, simplified_speed, RING,
+                             origin, logical, speed_window)
 
 
 # ---------------------------------------------------------------------------
@@ -214,18 +217,20 @@ def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
                                        *_spacing(params), slopes))
 
 
-def _fused_cuda(state, static, dt, params, comp, chunk=None):
+def _fused_cuda(state, static, dt, params, comp, window=None, chunk=None):
     """Launch K5b, the row-marching corrector with slopes and base
-    PREDICTED from the state, on the geometry of its grid and halo,
-    ``chunk`` rows per block unless ``geometry.march_geometry`` picks
-    them."""
+    PREDICTED from the state, with the mesh ``window``
+    (``common.mesh_window``; None: the whole grid) on the geometry of its
+    grid and halo, ``chunk`` rows per block unless
+    ``geometry.march_geometry`` picks them."""
     inputs = _check_step("muscl_fused", state, static, None,
                          CORRECTOR_PLANES[PREDICTED], dt, comp)
     geom = march_geometry(*state.z.shape, chunk=chunk,
                           halo=CORRECTOR_HALO[PREDICTED])
+    window = window or mesh_window(state.z.shape)
     return launch_step(_lib(), "muscl_fused", "muscl_fused", inputs, state,
                        comp, dt, geom.partials, (*state.z.shape,
-                                                 *geom.args(),
+                                                 *geom.args(), *window,
                                                  *_spacing(params)))
 
 
@@ -278,16 +283,21 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
 
 
 def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
-                comp=None, simplified_speed=False):
-    """K5b: one whole MUSCL-Hancock step + CFL max in one launch.  Returns
-    as ``muscl_step_plain``.  The CFL speed is always the full one: the
+                comp=None, simplified_speed=False, origin=None, logical=None,
+                speed_window=None):
+    """K5b: one whole MUSCL-Hancock step + CFL max in one launch, with the
+    mesh options of a halo-extended block.  Returns as
+    ``muscl_step_plain``.  The CFL speed is always the full one: the
     MUSCL-Hancock scheme never takes the simplified sqrt(gh) speed."""
     if simplified_speed:
         raise ValueError("muscl_fused: the MUSCL-Hancock step has no "
                          "simplified CFL speed")
     if not on_card("muscl_fused", state):
-        return muscl_step_plain(state, static, dt, params, comp=comp)
-    out = _fused_cuda(state, static, dt, params, comp)
+        return muscl_step_plain(state, static, dt, params, comp, False,
+                                origin, logical, speed_window)
+    out = _fused_cuda(state, static, dt, params, comp,
+                      mesh_window(state.z.shape, origin, logical,
+                                  speed_window))
     muscl_fused.launches += 1
     return out
 

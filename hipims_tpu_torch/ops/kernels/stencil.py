@@ -16,11 +16,12 @@ On CPU tensors a wrapper runs its plain version; on CUDA tensors it
 launches its kernel or raises.  There is no fallback from the card to the
 plain version.
 
-K1 and K4 also take the mesh options of a halo-extended block
+All three also take the mesh options of a halo-extended block
 (``parallel/halo_deep.py``): ``origin``, ``logical`` and ``speed_window``
 (``common.mesh_window``), as the TPU kernel takes ``origin`` and
-``speed_window``.  K5b runs on no mesh path, in either package, and takes
-the one-device defaults only.
+``speed_window`` for every scheme.  K5b's are held at op level: no mesh
+path runs it, in either package (a mesh runs MUSCL as predictor +
+corrector).
 """
 
 from __future__ import annotations
@@ -179,18 +180,15 @@ def stencil_step(scheme: str, state: FlowState, static, dt,
     speed covers every cell of the new state.  On a mesh block, ``origin``
     (the global index of the array's [0, 0]), ``logical`` (the logical
     grid's rows, cols) and ``speed_window`` (r0, nr, c0, nc: the owned
-    cells) also freeze the logical grid's ring in global coordinates and
-    restrict the max to the owned cells (``common.mesh_window``); K5b
-    takes none of them.  CUDA tensors launch the scheme's kernel (K1, K4
-    or K5b); CPU tensors take its plain version."""
+    cells) also freeze the logical grid's ring (two cells for
+    MUSCL-Hancock) in global coordinates and restrict the max to the
+    owned cells (``common.mesh_window``).  CUDA tensors launch the
+    scheme's kernel (K1, K4 or K5b); CPU tensors take its plain
+    version."""
     if scheme not in _BY_SCHEME:
         raise ValueError(f"stencil_step: unknown scheme {scheme!r}; "
                          f"expected one of {sorted(_BY_SCHEME)}")
-    mesh = dict(origin=origin, logical=logical, speed_window=speed_window)
-    if scheme == "muscl-hancock":
-        if any(v is not None for v in mesh.values()):
-            raise ValueError("stencil_step: the whole MUSCL step (K5b) runs "
-                             "on no mesh path; use muscl_step_split")
-        mesh = {}
     return _BY_SCHEME[scheme](state, static, dt, params, comp=comp,
-                              simplified_speed=simplified_speed, **mesh)
+                              simplified_speed=simplified_speed,
+                              origin=origin, logical=logical,
+                              speed_window=speed_window)

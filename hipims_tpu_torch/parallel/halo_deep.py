@@ -46,23 +46,32 @@ to per-step GSPMD halos (ROADMAP.md section 3).
 
 Host reads: in one process lock-step reads nothing; window mode reads one
 0-d tensor per window, the ``violated`` predicate (and one more per
-re-run), as the JAX package's ``while_loop`` reads it on the device.
+re-run), as the JAX package's ``while_loop`` reads it on the device.  In
+one process the blocks may lie on several cards (``mesh.make_mesh`` deals
+them round-robin): a strip between two of them is a peer copy, and each
+block's 0-d maximum is copied to the carry's card; neither waits for the
+host, and each block's boundary pass and kernel run on its own card.
 
 Across processes (``parallel/distributed.py``) the geometry stays global:
 every rank knows every block's ``own``, ``origin`` and pads, and holds the
 tensors, boundaries and force masks of its own blocks only.  A halo strip
 between two of its blocks is still copied in place; one between ranks is
-sent and received (``dist.batch_isend_irecv`` through host buffers, the
-rows pass completing before the columns pass, every rank posting in the
-same global pair order).  Each rank takes the ``torch.maximum`` of its
-blocks' speeds, then the ranks' values are all-gathered and folded in
-rank order (``distributed.max_over_ranks``: gloo's ReduceOp.MAX drops a
-NaN from rank 1 or above), so every rank holds the same speed, advances
-its own copy of the carry alike and takes the same re-run decisions.
-That is one host read per lock-step step (the reference's per-step
-MPI_Allreduce, src/MPI/CMPIManager.cpp:837-889) and one per window in
-window mode.  The NaN probe all-gathers the blocks' sums and adds them in
-block order, as one process does.
+sent and received (``dist.batch_isend_irecv``, the rows pass completing
+before the columns pass, every rank posting in the same global pair
+order).  Each rank takes the ``torch.maximum`` of its blocks' speeds,
+then the ranks' values are all-gathered and folded in rank order
+(``distributed.max_over_ranks``: gloo's ReduceOp.MAX drops a NaN from
+rank 1 or above), so every rank holds the same speed, advances its own
+copy of the carry alike and takes the same re-run decisions.  The NaN
+probe all-gathers the blocks' sums and adds them in block order, as one
+process does.  With the device group (NCCL: ranks on cards of their own,
+``distributed.open_groups``) the strips, maxima and sums move card to
+card as device tensors, and a lock-step step makes no host read (the
+reference's per-step MPI_Allreduce, src/MPI/CMPIManager.cpp:837-889, stays
+on the device); window mode reads its one ``violated`` per window, as in
+one process.  Without it (ranks sharing a card, or the CPU) every strip
+and scalar is staged through host buffers over gloo: one host read per
+lock-step step, and one per window in window mode.
 
 Output events read the blocks in one of two ways.  The gathered path's
 ``state``, ``static`` and ``comp`` assemble each plane's owned cells into
@@ -200,6 +209,8 @@ class HaloDeepBlocks:
         self.reruns = 0
         self.rank = distributed.rank()
         self.distributed = distributed.world_size() > 1
+        # Device tensors between ranks on this group; None: host-staged.
+        self.device_group = distributed.device_group()
         pr, pc = self.pads
         self.layout, self.blocks = [], []
         for (iy, ix), own in sorted(block_geometry(*self.logical,
@@ -343,10 +354,15 @@ class HaloDeepBlocks:
         (lo, hi) gives hi its low halo from lo's owned cells and lo its
         high halo from hi's.  Every strip read is owned cells and every
         strip written is halo, so the order within a pass does not
-        matter.  Pairs of this rank's blocks copy in place; a pair across
-        ranks sends its strip and receives the other's through host
-        buffers, every rank posting in the same global pair order with
-        one tag per strip, and the pass returns once all have landed."""
+        matter.  Pairs of this rank's blocks copy in place (a peer copy
+        between two cards); a pair across ranks sends its strip and
+        receives the other's through buffers (``_post``), and the pass
+        returns once all have landed.
+
+        Every rank posts its sends and receives in the one global pair
+        order below, strip by strip.  Correctness depends on it: NCCL
+        ignores tags and matches the sends and receives between two ranks
+        by the order in which they are posted, and gloo by tag."""
         p = self.pads[axis]
         ranks = {b.index: b.rank for b in self.layout}
         ops, landings = [], []
@@ -379,21 +395,30 @@ class HaloDeepBlocks:
     def _post(self, ops, landings, axis, peer, send, send_tag, recv,
               recv_tag):
         """Queue one strip out to ``peer`` and one in from it, each through
-        a host buffer of its exact shape and dtype (pinned for a card's
-        strips; gloo checks neither), kept for the next exchange."""
+        a contiguous buffer of its exact shape and dtype, kept per (axis,
+        tag) for the next exchange: on the device group a device buffer
+        beside the strip (NCCL takes contiguous tensors only, and a column
+        strip is not one), else a host buffer (pinned for a card's
+        strips; gloo checks neither shape nor dtype)."""
+        group = self.device_group
+
         def buffer(key, like):
             buf = self._staging.get(key)
             if buf is None:
-                buf = torch.empty(like.shape, dtype=like.dtype,
-                                  pin_memory=like.is_cuda)
+                buf = (torch.empty(like.shape, dtype=like.dtype,
+                                   device=like.device) if group is not None
+                       else torch.empty(like.shape, dtype=like.dtype,
+                                        pin_memory=like.is_cuda))
                 self._staging[key] = buf
             return buf
 
         out = buffer((axis, send_tag), send)
         out.copy_(send)
         into = buffer((axis, recv_tag), recv)
-        ops.append(dist.P2POp(dist.isend, out, peer, tag=send_tag))
-        ops.append(dist.P2POp(dist.irecv, into, peer, tag=recv_tag))
+        ops.append(dist.P2POp(dist.isend, out, peer, group=group,
+                              tag=send_tag))
+        ops.append(dist.P2POp(dist.irecv, into, peer, group=group,
+                              tag=recv_tag))
         landings.append((recv, into))
 
     # ------------------------------------------------------------------
@@ -497,7 +522,13 @@ class HaloDeepBlocks:
         # block order on every rank.
         sums = {b.index: torch.sum(b.state.z[b.interior]).reshape(1)
                 for b in self.blocks}
-        if self.distributed:
+        if self.distributed and self.device_group is not None:
+            # Each rank's blocks are a contiguous run of the layout, so the
+            # ranks' parts in rank order are the blocks in block order.
+            got = torch.cat(distributed.all_gather_device(
+                torch.cat([sums[b.index] for b in self.blocks])))
+            sums = {b.index: got[k] for k, b in enumerate(self.layout)}
+        elif self.distributed:
             sums = self.exchange({k: v.cpu() for k, v in sums.items()},
                                  lambda b: 1)
         poison = None

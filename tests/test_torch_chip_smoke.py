@@ -327,6 +327,26 @@ def test_kernels_record():
             r["name"], "f32c", rows * cols, 0.25)
 
 
+def test_kernels_record_lists_k5b_mesh_mode():
+    """Phase 3d's K5b mesh mode is an eighth entry with every key, its own
+    times, launches and error, and its bound for the blocks' cells."""
+    names = list(chip_smoke.KERNEL_SOURCES)
+    rows, cols = chip_smoke.CASES[-1][:2]
+    times = {(n, rows, cols, "f32c"): (1.0, 2.0) for n in names}
+    mesh = dict(ms=0.8, plain_ms=30.0, cells=9_200_000, err=0.0,
+                launches=12)
+    rec = chip_smoke.kernels_record(
+        times, {n: 0.0 for n in names}, {n: 7 for n in names}, rows * cols,
+        0.25, {n: 4 for n in names}, mesh)
+    assert len(rec) == 8 and set(rec[7]) == set(rec[0])
+    r = rec[7]
+    assert r["name"] == "muscl_fused_mesh" and r["source"] == rec[2]["source"]
+    assert (r["ms"], r["plain_ms"], r["launches"], r["replaces"]) == (
+        0.8, 30.0, 12, rec[2]["replaces"])
+    assert (r["bound_ms"], r["bound_by"]) == chip_smoke.kernel_bound(
+        "muscl_fused", "f32c", 9_200_000, 0.25)
+
+
 @pytest.mark.parametrize("patch", [(5, 7), (10, 10)])
 def test_patch_manning_is_constant_per_patch(patch):
     """One Manning value per land-use patch, inside random_domain's range,
@@ -383,26 +403,70 @@ def test_mesh_kernels_phase_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     times = {(n, 130, 197, m): (0.0, 0.0) for n in chip_smoke.MESH_KERNELS
              for m in ("f64", "f32", "f32c")}
-    worst, mesh_times = chip_smoke.phase_mesh_vs_plain(
-        torch, torch.device("cpu"), times)
+    worst, mesh_times, (k5b_plain_ms, cells) = \
+        chip_smoke.phase_mesh_vs_plain(torch, torch.device("cpu"), times)
     assert set(worst) == set(chip_smoke.MESH_KERNELS)
+    assert "muscl_fused" in worst
     assert all(v == 0.0 for v in worst.values())
-    assert len(mesh_times) == 12
+    assert len(mesh_times) == 15 and k5b_plain_ms == 0.0
+    # The four blocks of a 2x2 split, each extended by 17 cells a side.
+    assert cells == sum((nr + 34) * (nc + 34) for _, nr, _, nc in
+                        chip_smoke.mesh_blocks(130, 197)[:4])
 
 
 def test_ranks_main_path_on_cpu(tmp_path):
     """Phase 4j's two ranks (this script's --rank-worker processes, gloo
     on the CPU) at 64x48, 20 s: rasters byte-equal to the one-process
-    run's, one checkpoint, the ranks agreeing (checked inside)."""
+    run's, one checkpoint, the ranks agreeing (checked inside).  Both
+    runs take fixed batches of 8 steps (the scheme's queueSize), so their
+    idle steps, which a batch runs past the output time, are equal too:
+    batches sized by the wall clock differ between two runs."""
     one = chip_smoke.run_main_path(tmp_path / "one", "cpu", 64, 48, 20.0,
-                                   20.0, mass_tol=0.1, sync="timestep")
+                                   20.0, mass_tol=0.1, sync="timestep",
+                                   queue_size=8)
     res = chip_smoke.run_ranks_main_path(tmp_path / "two", 64, 48, 20.0,
                                          ref_root=tmp_path / "one",
-                                         device="cpu", mass_tol=0.1)
+                                         device="cpu", mass_tol=0.1,
+                                         queue_size=8)
     assert (res["steps"], res["idle"]) == (one["steps"], one["idle"])
     assert [r["rank"] for r in res["ranks"]] == [0, 1]
     assert "comp" in res["members"] and res["checkpoint_mb"] > 0
     assert not any(res["launches"].values())
+    # Host-staged (no device group on the CPU): the max is read back to
+    # the host at every lock-step step.
+    assert res["groups"] == {"world": "gloo", "device": None}
+    assert res["reads"] >= 2 * res["steps"]
+
+
+def test_cards_main_path_on_cpu(tmp_path):
+    """Phase 4k at 64x48, 20 s on the CPU: (a) the 2x2 mesh in one
+    process on four CPU blocks and (b) on four ranks (gloo, no device
+    group on the CPU) write phase 4's rasters byte for byte, whole
+    checkpoints, equal steps and idle steps (fixed batches), and their
+    lock-step steps read nothing back in one process; the ranks' do,
+    host-staged."""
+    chip_smoke.run_main_path(tmp_path / "one", "cpu", 64, 48, 20.0, 20.0,
+                             mass_tol=0.1, sync="timestep")
+    res = chip_smoke.run_cards_main_path(tmp_path / "cards", 64, 48, 20.0,
+                                         tmp_path / "one", 4, device="cpu",
+                                         mass_tol=0.1, queue_size=8)
+    a, b = res["a"], res["b"]
+    assert a["devices"] == ["cpu"] and a["reads"] == 0
+    assert len(b["ranks"]) == 4 and b["reads"] > 0
+    assert all(r["groups"] == {"world": "gloo", "device": None}
+               for r in b["ranks"])
+    assert (a["steps"], a["idle"]) == (b["steps"], b["idle"])
+    assert "comp" in a["members"] and a["members"] == b["members"]
+
+
+@pytest.mark.parametrize("cards", [0, 1, 2, 4])
+def test_multi_card_phases_say_when_not_run(cards):
+    line = chip_smoke.not_run("4k", cards)
+    if cards >= 2:
+        assert line is None
+    else:
+        assert line == (f"phase 4k: not run: needs 2+ CUDA devices, "
+                        f"{cards} visible")
 
 
 def test_ranks_stream_path_on_cpu(tmp_path):

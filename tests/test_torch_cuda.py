@@ -14,9 +14,12 @@ true surface z + comp to 1e-6.  At the ragged shapes every kernel is held
 to its plain version bit for bit (torch.equal), K4 under three layouts of
 the Manning n, K5b also at chunk heights of 1 to 64 rows, and the
 recompute chain and K5b to split12.  In mesh mode (a halo-extended block:
-``origin``, ``logical``, ``speed_window``) K1, K4, K3 and K5a-C equal their
-plain versions bit for bit, their owned cells equal the whole-grid
-kernel's, and the one-device defaults given outright change nothing.  K1
+``origin``, ``logical``, ``speed_window``) K1, K4, K3, K5a-C and K5b equal
+their plain versions bit for bit, their owned cells equal the whole-grid
+kernel's, and the one-device defaults given outright change nothing.  A
+2x2 mesh dealt over two or more cards in one process equals one card
+(lock-step: the one-device run; windows: the same mesh on one card); it
+skips where fewer than two cards are visible.  K1
 and the split12 pair K2 + K3 also match the port's numpy oracles
 (ops/oracle.py, ops/oracle_muscl.py: the JAX package's per-cell
 transcriptions of the reference) to 1e-12 in float64, a reference that
@@ -255,8 +258,8 @@ def test_muscl_kernels_reject_bad_inputs():
 
 def _plain_and_kernel(name, state, static, comp, dt, **mesh):
     """(kernel result, plain result) of kernel ``name`` on the inputs, with
-    the ``mesh`` options (not K5b's); the correctors take the plain
-    predictor's planes."""
+    the ``mesh`` options; the correctors take the plain predictor's
+    planes."""
     pred = ms.muscl_predict_plain(state, static, dt, PARAMS)
     base = pred[:4].contiguous()
     return {
@@ -279,8 +282,9 @@ def _plain_and_kernel(name, state, static, comp, dt, **mesh):
             ms.muscl_correct_plain(state, static, base, dt, PARAMS,
                                    comp=comp, **mesh)),
         "K5b": lambda: (
-            st.muscl_fused(state, static, dt, PARAMS, comp=comp),
-            st.muscl_step_plain(state, static, dt, PARAMS, comp=comp)),
+            st.muscl_fused(state, static, dt, PARAMS, comp=comp, **mesh),
+            st.muscl_step_plain(state, static, dt, PARAMS, comp=comp,
+                                **mesh)),
     }[name]()
 
 
@@ -298,7 +302,7 @@ def test_kernels_bit_equal_at_ragged_shapes(name, mode, shape):
         assert torch.equal(g, w)
 
 
-MESH_KERNELS = ["K1", "K3", "K4", "K5a-C"]
+MESH_KERNELS = ["K1", "K3", "K4", "K5a-C", "K5b"]
 
 
 def _mesh_options(rows, cols):
@@ -315,9 +319,9 @@ def _mesh_options(rows, cols):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", MESH_KERNELS)
 def test_mesh_mode_kernels_bit_equal(name, mode, shape):
-    """K1, K4, K3 and K5a-C with a block's origin, logical grid and owned
-    window equal their plain versions bit for bit, at an aligned shape
-    and at the ragged ones of either halo width."""
+    """K1, K4, K3, K5a-C and K5b with a block's origin, logical grid and
+    owned window equal their plain versions bit for bit, at an aligned
+    shape and at the ragged ones of either halo width."""
     state, static, comp, dt = _inputs(mode, *shape)
     got, want = _plain_and_kernel(name, state, static, comp, dt,
                                   **_mesh_options(*shape))
@@ -517,3 +521,57 @@ def test_chunk_copies_read_cuda_planes(tmp_path, mesh_shape):
     rows, cols = [3, 30, 31, 60], [0, 33, 34, 66]
     np.testing.assert_array_equal(sio.host_cells(plane, rows, cols),
                                   want[rows, cols])
+
+
+# ---------------------------------------------------------------------------
+# A mesh over several cards in one process (parallel/halo_deep.py).
+
+def _dam_sim(mesh, sync):
+    """_stream_sim's circular dam in f32c, lock-step or in windows of 3,
+    fixed batches of 8, on ``mesh`` (or cuda:0 without one)."""
+    from hipims_tpu_torch.domain import Domain
+    from hipims_tpu_torch.runtime import Simulation, SimulationConfig
+
+    rows, cols = 61, 67
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    dom = Domain(zb=0.3 * np.sin(yy / 5.0) * np.cos(xx / 7.0),
+                 manning=0.02, dx=2.0, dy=2.0)
+    dom.set_initial_depth(np.where(
+        np.hypot(yy - rows / 2, xx - cols / 2) * 2.0 <= rows / 2.5, 1.5,
+        0.1))
+    cfg = SimulationConfig(duration=8.0, output_frequency=8.0,
+                           dtype="float32c", batch_size=8, batch_auto=False,
+                           sync_method=sync, forecast_window=3)
+    return Simulation(dom, cfg, device=None if mesh else "cuda:0",
+                      mesh=mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["timestep", "forecast"])
+def test_mesh_over_cards_equals_one_card(sync):
+    """A 2x2 mesh dealt round-robin over the visible cards (two or more):
+    each block's boundary pass and kernel run on its own card, strips
+    cross as peer copies and the maxima meet on the carry's card.
+    Lock-step equals the one-device run bit for bit; windows of 3 equal
+    the same mesh on one card in state, comp, steps and re-runs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2+ CUDA devices")
+    from hipims_tpu_torch.parallel import make_mesh
+
+    cards = make_mesh(shape=(2, 2))
+    assert len({str(d) for d in cards.devices.flat}) == min(
+        4, torch.cuda.device_count())
+    ref = _dam_sim(None if sync == "timestep"
+                   else make_mesh(shape=(2, 2),
+                                  devices=[torch.device("cuda", 0)] * 4),
+                   sync)
+    sim = _dam_sim(cards, sync)
+    for s in (ref, sim):
+        s.run()
+    assert sim.t == ref.t and sim.total_steps == ref.total_steps
+    assert sim.window_reruns == ref.window_reruns
+    for a, b in zip([*sim.state, sim.comp], [*ref.state, ref.comp]):
+        assert a.device == torch.device("cuda", 0)
+        assert torch.equal(a, b.to(a.device))
+    for b in sim._blocks.blocks:
+        assert all(a.device == b.device for a in (*b.state, b.comp))

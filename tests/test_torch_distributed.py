@@ -19,7 +19,14 @@ and tests/test_multihost.py):
 * the embedding API's callbacks on rank 0 alone, and ``field`` refused
   in a streamed run;
 * a NaN on rank 1 stops both ranks; the CLI's ``--distributed`` and its
-  errors.
+  errors;
+* the device-direct branch (``distributed.open_device_group``: NCCL on
+  the card) run here over a second gloo group on CPU tensors, which gloo
+  takes directly: its strips, maxima and NaN probe give the host-staged
+  branch's results ``torch.equal`` in lock-step and windows, its
+  lock-step steps read nothing back to the host, and a NaN on rank 1
+  still stops both ranks; and the census's choice of groups (none on
+  the CPU or where two ranks name one card).
 
 Every spawn has a timeout and a kill, and the ranks' collectives the
 process group's timeout, so a deadlock fails a test instead of hanging
@@ -163,13 +170,46 @@ assert initialize_cluster(coord, 2, rank)       # again: success
 mine = f"{root}/rank{rank}"
 arrays, info = {}, {}
 
-if case == "nan":
+from hipims_tpu_torch.parallel import distributed
+if case.endswith("device"):
+    # The device-direct branch on CPU tensors: a second gloo group.
+    distributed.open_device_group("gloo")
+    assert distributed.groups() == dict(world="gloo", device="gloo")
+
+if case.startswith("nan"):
     sim = phase_a(make_mesh(8, devices=[CPU] * 8))
     if rank == 1:
         b = sim._blocks.blocks[0]
         b.state.qx[b.interior][5, 5] = float("nan")
     sim.run()                                   # raises on both ranks
     raise SystemExit("no divergence was seen")
+
+if case == "device":
+    import chip_smoke
+    with chip_smoke.count_host_reads() as reads:
+        sim = phase_a(make_mesh(8, devices=[CPU] * 8))
+        sim.run()
+    arrays["a_z"] = gather_to_host(sim.state.z)
+    info["a_t"], info["a_reads"] = sim.t, reads["reads"]
+    for sync in ("timestep", "forecast"):
+        with chip_smoke.count_host_reads() as reads:
+            simC = phase_c(make_mesh(6, shape=(3, 2), devices=[CPU] * 6),
+                           sync)
+            simC.run()
+        arrays[f"c_{sync}_z"] = gather_to_host(simC.state.z)
+        arrays[f"c_{sync}_comp"] = gather_to_host(simC.comp)
+        info[f"c_{sync}_reruns"] = simC.window_reruns
+        info[f"c_{sync}_reads"] = reads["reads"]
+        info[f"c_{sync}_steps"] = simC.total_steps + simC.total_skipped
+    np.savez(f"{root}/rank{rank}.npz", **arrays)
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(info, f)
+    distributed.shutdown()
+    print("RANK_DONE", rank)
+    raise SystemExit(0)
+
+info["census"] = distributed.census("cpu")
+info["groups"] = distributed.open_groups("cpu")
 
 summary = host_summary()
 info.update(summary=summary, coordinator=is_coordinator())
@@ -244,6 +284,9 @@ for io_mode in ("gather", "stream"):
 np.savez(f"{root}/rank{rank}.npz", **arrays)
 with open(f"{root}/rank{rank}.json", "w") as f:
     json.dump(info, f)
+# Leave the groups before the interpreter exits: a process group left to
+# the interpreter's teardown can abort the process after its work is done.
+distributed.shutdown()
 print("RANK_DONE", rank)
 '''
 
@@ -300,6 +343,18 @@ def cluster(tmp_path_factory):
         assert rc == 0 and f"RANK_DONE {r}" in out, \
             f"rank {r} failed:\n{out[-4000:]}"
     return root, [np.load(root / f"rank{r}.npz") for r in (0, 1)], \
+        [json.loads((root / f"rank{r}.json").read_text()) for r in (0, 1)]
+
+
+@pytest.fixture(scope="module")
+def device_cluster(tmp_path_factory):
+    """The ranks' lock-step and window runs on the device-direct branch
+    (a second gloo group standing in for NCCL)."""
+    root = tmp_path_factory.mktemp("device_cluster")
+    for r, (rc, out) in enumerate(_ranks(root, "device")):
+        assert rc == 0 and f"RANK_DONE {r}" in out, \
+            f"rank {r} failed:\n{out[-4000:]}"
+    return [np.load(root / f"rank{r}.npz") for r in (0, 1)], \
         [json.loads((root / f"rank{r}.json").read_text()) for r in (0, 1)]
 
 
@@ -551,6 +606,86 @@ def test_nan_on_rank_1_stops_every_rank(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# The device group: placement, and the device-direct branch.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("entries,platform,want", [
+    ([("h", "cuda:0"), ("h", "cuda:1")], "gpu", "nccl"),
+    ([("h0", "cuda:0"), ("h1", "cuda:0")], "gpu", "nccl"),
+    ([("h", "cuda:0"), ("h", "cuda:0")], "gpu", None),
+    ([("h", "cuda:0"), ("h", "cuda:1"), ("h", "cuda:1")], "gpu", None),
+    ([("h", "cpu"), ("h", "cpu")], "cpu", None),
+    ([("h0", "cpu"), ("h1", "cpu")], "cpu", None),
+    ([("h", "cuda:0")], "gpu", None)])
+def test_device_backend_by_placement(entries, platform, want):
+    """NCCL only on the GPU where no two ranks name one card of one host
+    (NCCL refuses two ranks on one device); otherwise host-staged."""
+    assert distributed.device_backend(entries, platform) == want
+
+
+def test_census_on_the_cpu_opens_no_device_group(cluster):
+    _, _, info = cluster
+    for r, i in enumerate(info):
+        assert [tuple(e) for e in i["census"]] == [
+            tuple(info[0]["census"][0]), tuple(info[1]["census"][1])]
+        assert [e[1] for e in i["census"]] == ["cpu", "cpu"]
+        assert i["groups"] is None
+        assert i["summary"]["device_backend"] is None
+    assert distributed.groups() == dict(world=None, device=None)
+
+
+def test_device_branch_lock_step_equals_host_staged(cluster, device_cluster,
+                                                    one_process):
+    """Phase A (a (2, 4) mesh, 4 blocks a rank) and f32c lock-step on the
+    (3, 2) mesh: the device-direct strips and maxima give the host-staged
+    cluster's state (and the one process's), bit for bit, and no host
+    read in the steps; the host-staged branch reads the max every
+    step."""
+    _, host, host_info = cluster
+    dev, info = device_cluster
+    c = one_process["c"]["timestep"]
+    for r in (0, 1):
+        assert torch.equal(torch.from_numpy(dev[r]["a_z"]),
+                           torch.from_numpy(host[r]["a_z"]))
+        assert info[r]["a_t"] == host_info[r]["a_t"]
+        assert torch.equal(torch.from_numpy(dev[r]["c_timestep_z"]),
+                           c.state.z)
+        assert torch.equal(torch.from_numpy(dev[r]["c_timestep_comp"]),
+                           c.comp)
+        assert info[r]["a_reads"] == 0 and info[r]["c_timestep_reads"] == 0
+
+
+def test_device_branch_windows_equal_host_staged(cluster, device_cluster,
+                                                 one_process):
+    """f32c in windows of 3 on the (3, 2) mesh: the same state, comp and
+    re-runs as the host-staged cluster and one process; one host read per
+    window (the ``violated`` predicate) and per re-run, none per step."""
+    _, host, host_info = cluster
+    dev, info = device_cluster
+    c = one_process["c"]["forecast"]
+    for r in (0, 1):
+        for k in ("c_forecast_z", "c_forecast_comp"):
+            assert torch.equal(torch.from_numpy(dev[r][k]),
+                               torch.from_numpy(host[r][k]))
+        assert torch.equal(torch.from_numpy(dev[r]["c_forecast_z"]),
+                           c.state.z)
+        assert info[r]["c_forecast_reruns"] == \
+            host_info[r]["c_forecast_reruns"] == c.window_reruns
+        windows = info[r]["c_forecast_steps"] // 3
+        assert info[r]["c_forecast_reads"] == \
+            windows + info[r]["c_forecast_reruns"] > 0
+
+
+def test_nan_on_rank_1_stops_every_rank_on_the_device_group(tmp_path):
+    """The device-direct max folds the ranks' values with torch.maximum
+    as the host-staged one does, so rank 1's NaN reaches every clock."""
+    for r, (rc, out) in enumerate(_ranks(tmp_path, "nan_device")):
+        assert rc != 0, f"rank {r} ran on:\n{out[-2000:]}"
+        assert "Simulation diverged (t=nan" in out, \
+            f"rank {r}:\n{out[-3000:]}"
+
+
+# ---------------------------------------------------------------------------
 # The CLI.
 # ---------------------------------------------------------------------------
 
@@ -574,7 +709,8 @@ def test_cli_two_ranks_equal_one_process(tmp_path, capsys):
                      "--checkpoint", str(ck), "--mass-balance", logs=logs)
     for r, (rc, out) in enumerate(res):
         assert rc == 0, f"rank {r}:\n{out[-3000:]}"
-    assert "Cluster:     2 ranks, backend gloo" in res[0][1]
+    assert "Cluster:     2 ranks, backend gloo, device group none " \
+        "(strips and maxima through the host)" in res[0][1]
     assert "Mass balance" in res[0][1] and "rank" in res[0][1]
     assert "Simulation complete" not in res[1][1]   # rank 1 is quiet
     assert logs[0].exists() and not logs[1].exists()

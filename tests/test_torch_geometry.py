@@ -151,8 +151,10 @@ def test_constants_match_march_header():
 def test_corrector_halos_match_muscl_source(monkeypatch):
     """K3 takes one halo lane, K5a-C and K5b two, in the wrapper and in
     csrc/muscl_split.cu corrector_halo; K5b's launcher sizes its launch
-    and partials for the two-lane halo."""
+    and partials for the two-lane halo and, without mesh options, passes
+    the one-device mesh window."""
     from hipims_tpu_torch.ops.kernels import muscl_split as ms
+    from hipims_tpu_torch.ops.kernels.common import mesh_window
 
     src = Path(G.__file__).parents[2] / "csrc" / "muscl_split.cu"
     flat = " ".join(src.read_text().split())
@@ -185,6 +187,7 @@ def test_corrector_halos_match_muscl_source(monkeypatch):
         geom = G.march_geometry(rows, cols, chunk=chunk, halo=2)
         assert seen == dict(name="muscl_fused", inputs=6,
                             partials=geom.partials,
-                            args=(rows, cols, *geom.args(), 0.5, 0.5,
+                            args=(rows, cols, *geom.args(),
+                                  *mesh_window((rows, cols)), 0.5, 0.5,
                                   params.very_small, params.quite_small, 1))
     assert geom.grid == (2, 5)

@@ -2,11 +2,13 @@
 (``parallel/mesh.py``, ``halo_pads``, ``device_table``), the mesh options
 of the fused steps, and mesh runs of ``Simulation``.
 
-``stencil_step`` (K1, K4) and ``muscl_step_split`` (K3, K5a-C behind
-either predictor) with ``origin``, ``logical`` and ``speed_window`` are
-held against the JAX package's Pallas kernels in interpret mode with the
-same ``origin`` and ``speed_window``, float64, rtol = atol = 1e-12 on the
-state and the max speed (tests/test_pallas_stencil.py's bar).  The block
+``stencil_step`` (K1, K4, K5b) and ``muscl_step_split`` (K3, K5a-C
+behind either predictor) with ``origin``, ``logical`` and
+``speed_window`` are held against the JAX package's Pallas kernels in
+interpret mode with the same ``origin`` and ``speed_window``, float64,
+rtol = atol = 1e-12 on the state and the max speed
+(tests/test_pallas_stencil.py's bar), and K5b in f32c too, the true
+surface z + comp to 1e-6.  The block
 is one that ``supports`` takes (rows a multiple of 8, columns of 128),
 and its origin puts the logical ring inside it on its south and east
 sides and outside it on its north and west sides.  The TPU kernels leave
@@ -151,10 +153,11 @@ def _check(got, want, got_speed, want_speed, edge):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("scheme", ["godunov", "inertial"])
+@pytest.mark.parametrize("scheme", ["godunov", "inertial", "muscl-hancock"])
 def test_stencil_step_mesh_options_match_pallas(scheme, seed):
     jstate, jstatic = _block(seed)
     simple = scheme == "inertial"
+    radius = 2 if scheme == "muscl-hancock" else 1
     want, want_speed = stencil_step_pallas(
         scheme, jstate, jstatic, 0.05, JParams(2.0, 2.0), simple, 8, True,
         *LOGICAL, None, WINDOW, np.asarray([ORIGIN]))
@@ -164,13 +167,15 @@ def test_stencil_step_mesh_options_match_pallas(scheme, seed):
         torch.tensor(0.05, dtype=torch.float64), SchemeParams(2.0, 2.0),
         simplified_speed=simple, origin=ORIGIN, logical=LOGICAL,
         speed_window=WINDOW)
-    _check(got, want, speed, want_speed, 1)
-    # The logical ring (rows 0..3 are outside or on it; columns 119.. on
-    # it) keeps its values, the array's own ring too.
+    _check(got, want, speed, want_speed, radius)
+    # The logical ring (rows 0..3 are outside or on it, columns 119.. on
+    # it; for MUSCL-Hancock's two cells rows 0..4 and columns 118..) keeps
+    # its values, the array's own ring too.
     for g, s in zip(got, state):
-        assert torch.equal(g[:4], s[:4]) and torch.equal(g[:, 119:],
-                                                         s[:, 119:])
-        assert torch.equal(g[-1], s[-1]) and torch.equal(g[:, 0], s[:, 0])
+        assert torch.equal(g[:3 + radius], s[:3 + radius])
+        assert torch.equal(g[:, 120 - radius:], s[:, 120 - radius:])
+        assert torch.equal(g[-radius:], s[-radius:])
+        assert torch.equal(g[:, :radius], s[:, :radius])
 
 
 @pytest.mark.parametrize("variant", ["split12", "recompute"])
@@ -191,10 +196,13 @@ def test_muscl_step_split_mesh_options_match_pallas(variant):
                                                          s[:, 118:])
 
 
-@pytest.mark.parametrize("scheme", ["godunov", "inertial", "muscl-split"])
+@pytest.mark.parametrize("scheme", ["godunov", "inertial", "muscl-split",
+                                    "muscl-hancock"])
 def test_mesh_options_compensated_ring_and_defaults(scheme):
     """f32c: comp keeps its values on the logical ring, as the state does;
-    the one-device defaults, given outright, change nothing."""
+    the one-device defaults, given outright, change nothing.  K5b's mesh
+    mode also matches the TPU kernel in interpret mode on the true surface
+    z + comp (1e-6) off the array's own two-cell ring."""
     jstate, jstatic = _block(4, np.float32)
     state, static = from_numpy(jstate, "cpu"), from_numpy(jstatic, "cpu")
     comp = torch.as_tensor(np.random.default_rng(1).uniform(
@@ -210,8 +218,8 @@ def test_mesh_options_compensated_ring_and_defaults(scheme):
 
     got = step(origin=ORIGIN, logical=LOGICAL, speed_window=WINDOW)
     ring = ~interior_force_mask((ROWS, COLS),
-                                2 if scheme == "muscl-split" else 1, CPU,
-                                ORIGIN, LOGICAL)
+                                1 if scheme in ("godunov", "inertial") else 2,
+                                CPU, ORIGIN, LOGICAL)
     assert torch.equal(got[2][ring], comp[ring])
     assert not torch.equal(got[2][~ring], comp[~ring])
     plain, defaults = step(), step(origin=(0, 0), logical=(ROWS, COLS),
@@ -219,19 +227,31 @@ def test_mesh_options_compensated_ring_and_defaults(scheme):
     for a, b in zip((*plain[0], plain[1], plain[2]),
                     (*defaults[0], defaults[1], defaults[2])):
         assert torch.equal(a, b)
+    if scheme == "muscl-hancock":
+        want, want_speed, want_comp = stencil_step_pallas(
+            scheme, jstate, jstatic, 0.05, JParams(2.0, 2.0), False, 8,
+            True, *LOGICAL, comp.numpy(), WINDOW, np.asarray([ORIGIN]))
+        inner = (slice(2, -2), slice(2, -2))
+        surface = (got[0].z.double() + got[2].double()).numpy()[inner]
+        np.testing.assert_allclose(
+            surface, (np.asarray(want.z, np.float64)
+                      + np.asarray(want_comp, np.float64))[inner],
+            rtol=0, atol=1e-6)
+        for g, w in zip(got[0][1:], want[1:]):
+            np.testing.assert_allclose(g.numpy()[inner], np.asarray(w)[inner],
+                                       rtol=1e-5, atol=1e-6)
+        assert float(got[1]) == pytest.approx(float(want_speed), rel=1e-5)
 
 
 def test_mesh_options_checked():
     jstate, jstatic = _block(0)
     state, static = from_numpy(jstate, "cpu"), from_numpy(jstatic, "cpu")
     dt = torch.tensor(0.05, dtype=torch.float64)
-    with pytest.raises(ValueError, match="speed_window"):
-        stencil_step("godunov", state, static, dt, SchemeParams(2.0, 2.0),
-                     origin=ORIGIN, logical=LOGICAL,
-                     speed_window=(20, 10, 0, 128))
-    with pytest.raises(ValueError, match="no mesh path"):
-        stencil_step("muscl-hancock", state, static, dt,
-                     SchemeParams(2.0, 2.0), origin=ORIGIN)
+    for scheme in ("godunov", "muscl-hancock"):
+        with pytest.raises(ValueError, match="speed_window"):
+            stencil_step(scheme, state, static, dt, SchemeParams(2.0, 2.0),
+                         origin=ORIGIN, logical=LOGICAL,
+                         speed_window=(20, 10, 0, 128))
 
 
 # ---------------------------------------------------------------------------
