@@ -1,0 +1,312 @@
+"""One run of one cell: set-up, the measured window (or, traced, one
+profiled segment), the check against the reference, the result line.
+
+A segment is the traffic's simulated interval [0, S]: the start state
+restored with the program's ``load_checkpoint`` (harness work, timed
+apart and left out), then ``Simulation.run_to`` and
+``Simulation.emit_output`` at each output time and ``run_to(S)``, the
+calls ``Simulation.run`` makes.  Every segment does the same work, so a
+faster program completes more of them.  Set-up is everything from the
+process's start to the first timed segment: the model directory written
+from the seed, loaded and built through the program's own XML path, the
+start checkpoint written, and one untimed segment that loads every
+kernel.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+import types
+from pathlib import Path
+
+import torch
+
+from . import check, model_dir, spec, trace
+from .reference import model as reference
+
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "hipims_tpu")
+PRECISION = {"double": "float32c", "float32c": "float32c",
+             "compensated": "float32c", "single": "float32",
+             "float": "float32", "double-strict": "float64"}
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def card_info():
+    name = torch.cuda.get_device_name(0)
+    try:
+        limit = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.split("\n")[0].strip()
+    except (OSError, subprocess.SubprocessError):
+        limit = "unknown"
+    return name, limit
+
+
+def forbidden_loaded():
+    """Top-level names in sys.modules that the benchmark may not load,
+    compared whole (hipims_tpu_torch is not hipims_tpu)."""
+    tops = {m.split(".")[0] for m in list(sys.modules)}
+    return sorted(tops & set(FORBIDDEN_MODULES))
+
+
+class ForbiddenModules(RuntimeError):
+    def __init__(self, names):
+        super().__init__("loaded: " + ", ".join(names))
+        self.names = names
+
+
+class Segments:
+    """The program's simulation of one model directory and its restore
+    point."""
+
+    def __init__(self, xml, device, workdir, traffic):
+        from hipims_tpu_torch.io.xml_config import load_config
+        from hipims_tpu_torch.runtime import checkpoint
+
+        self._ckpt = checkpoint
+        self.sim = load_config(xml).simulation(device=device)
+        self.start = Path(workdir) / "start.npz"
+        checkpoint.save_checkpoint(self.start, self.sim)
+        self.times = [float(t) for t in traffic["output_times_s"]]
+        self.end = float(traffic["segment_s"])
+
+    def run(self):
+        """One segment; returns its record: wall, host CPU and
+        garbage-collection seconds, restore seconds, successful and idle
+        steps, the event spans."""
+        from torch.profiler import record_function
+
+        sim = self.sim
+        r0 = time.perf_counter()
+        self._ckpt.load_checkpoint(self.start, sim)
+        restored = time.perf_counter() - r0
+        spans = []
+        gc0 = dict(GC_CLOCK)
+        c0 = time.process_time()
+        t0 = time.perf_counter()
+        for t in self.times + ([self.end] if self.end not in self.times
+                               else []):
+            s0 = time.perf_counter()
+            with record_function("portbench.run_to"):
+                sim.run_to(t)
+            s1 = time.perf_counter()
+            spans.append(("portbench.run_to", s0, s1))
+            if t in self.times:
+                with record_function("portbench.emit_output"):
+                    sim.emit_output(t)
+                spans.append(("portbench.emit_output", s1,
+                              time.perf_counter()))
+        wall = time.perf_counter() - t0
+        cpu = time.process_time() - c0
+        return types.SimpleNamespace(
+            wall=wall, cpu=cpu, restore=restored, steps=sim.total_steps,
+            idle=sim.total_skipped, spans=spans,
+            gc_n=GC_CLOCK["n"] - gc0["n"], gc_s=GC_CLOCK["s"] - gc0["s"],
+            events=[e - s for n, s, e in spans
+                    if n == "portbench.emit_output"])
+
+    def outputs(self):
+        """What the check reads of the program: its clock and its state
+        at the segment's end, as float64 host arrays."""
+        sim = self.sim
+        planes = [a.double().cpu().numpy() for a in (*sim.state,
+                                                     sim.static.zb)]
+        return {"t": sim.t, "t_hydro": float(sim.carry.t_hydro),
+                "state": planes}
+
+
+GC_CLOCK = {"n": 0, "s": 0.0, "start": None}
+
+
+def _gc_clock(phase, info):
+    """gc.callbacks hook: counts the collections and their seconds."""
+    if phase == "start":
+        GC_CLOCK["start"] = time.perf_counter()
+    elif GC_CLOCK["start"] is not None:
+        GC_CLOCK["n"] += 1
+        GC_CLOCK["s"] += time.perf_counter() - GC_CLOCK["start"]
+        GC_CLOCK["start"] = None
+
+
+def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
+             precision=None, sizes=None, limits=None, t_start=None,
+             root=None, reference_cache=None):
+    """One run of ``workload``; returns the result dict that ``run.py``
+    prints.  ``device``, ``precision`` (the control's "single"),
+    ``sizes`` (rows, cols and segment_s for a tiny CPU rehearsal) with
+    ``limits`` for that size (the cell's own are read at its own size),
+    and ``reference_cache`` (a dict that keeps the reference's outputs
+    for the next run of the same seed) are for the tests and the readings
+    tool: the command line sets none of them."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    root = root or spec.ROOT
+    bench = spec.benchmark(root)
+    cell = spec.cell(bench, workload)
+    config = spec.config(bench, cell["config"], root)
+    traffic = spec.traffic(cell["traffic"], root)
+    limits = limits or spec.limits(workload, root)
+    if sizes:
+        config.update({k: v for k, v in sizes.items() if k in config})
+        traffic.update({k: v for k, v in sizes.items() if k in traffic})
+    on_card = torch.device(device).type == "cuda"
+    cells = config["rows"] * config["cols"]
+    workdir = Path(tempfile.mkdtemp(prefix="portbench-",
+                                    dir=os.environ.get("TMPDIR")))
+    gc.callbacks.append(_gc_clock)
+    try:
+        xml = model_dir.write(workdir / "model", config, traffic, seed,
+                              precision=precision)
+        run_precision = PRECISION[precision
+                                  or config["floatingPointPrecision"]]
+        seg = Segments(xml, device, workdir, traffic)
+        warm = seg.run()
+        say(f"warm segment: {warm.wall:.3f} s, {warm.steps} steps "
+            f"(+{warm.idle} idle), restore {warm.restore:.3f} s")
+        if on_card:
+            torch.cuda.synchronize()
+            setup_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        setup_s = time.perf_counter() - t_start
+        if trace_on:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if on_card else [])
+            # One segment on the host clock alone, for the host-clock
+            # metrics and the wall that the device's busy seconds are
+            # measured against (the profiler slows this host-bound loop
+            # by about half, with or without the host's operations); then
+            # one under the profiler.
+            plain = seg.run()
+            with profile(activities=acts) as prof:
+                segs = [seg.run()]
+            tr = trace.collect(prof)
+            del prof
+        else:
+            segs = []
+            while not segs or sum(s.wall for s in segs) < seconds:
+                segs.append(seg.run())
+        if on_card:
+            torch.cuda.synchronize()
+            window_peak = torch.cuda.max_memory_allocated()
+        else:
+            setup_peak = window_peak = 0
+        loaded = forbidden_loaded()
+        if loaded:
+            raise ForbiddenModules(loaded)
+        wall = sum(s.wall for s in segs)
+        failed = sum(s.steps != warm.steps for s in segs)
+        seg_s = float(traffic["segment_s"])
+        say(f"segments: {len(segs)} in {wall:.3f} s "
+            f"(restores {sum(s.restore for s in segs):.3f} s apart: "
+            + ", ".join(f"{s.restore:.3f}" for s in segs) + ")")
+        say("steps per segment: "
+            + ", ".join(str(s.steps) for s in segs)
+            + f" (warm-up {warm.steps}); idle steps: "
+            + ", ".join(str(s.idle) for s in segs))
+        say("segment walls s: " + ", ".join(f"{s.wall:.4f}" for s in segs))
+        say("segment host cpu s: "
+            + ", ".join(f"{s.cpu:.4f}" for s in segs))
+        say("segment gc: " + ", ".join(f"{s.gc_n} in {s.gc_s:.4f} s"
+                                       for s in segs))
+        events = [e for s in segs for e in s.events]
+        if events:
+            say("output events s: " + ", ".join(f"{e:.4f}" for e in events))
+        say(f"cell updates per second: "
+            f"{cells * sum(s.steps for s in segs) / wall:.6e}")
+
+        result = {"correct": False, "attempted": len(segs), "failed": failed,
+                  "metrics": {}}
+        if trace_on:
+            say(f"traced segment: profiled {segs[0].wall:.4f} s, "
+                f"unprofiled {plain.wall:.4f} s")
+            ctx = types.SimpleNamespace(
+                trace=tr, spans=plain.spans, wall=plain.wall, cells=cells,
+                steps=segs[0].steps, idle=segs[0].idle, config=config,
+                traffic=traffic, precision=run_precision)
+            for m in spec.metrics(bench, workload, "per_layer"):
+                value = spec.reader(m["name"], root)(ctx)
+                if value is not None:
+                    result["metrics"][m["name"]] = {"value": value,
+                                                    "unit": m["unit"]}
+            busy_s, window_s = tr.busy_s(), tr.window_s
+            breakdown = {"device_ops": trace.device_time_by_name(tr),
+                         "idle_gaps": trace.idle_by_host(tr)}
+            del tr
+        else:
+            e2e = {"sim_speed": len(segs) * seg_s / wall,
+                   "peak_mem_GiB": window_peak / 2.0 ** 30,
+                   "setup_s": setup_s}
+            for m in spec.metrics(bench, workload, "end_to_end"):
+                result["metrics"][m["name"]] = {"value": e2e[m["name"]],
+                                                "unit": m["unit"]}
+        if on_card:
+            name, limit = card_info()
+            say(f"card: {name}, count 1 of {torch.cuda.device_count()} "
+                f"visible, power limit {limit}")
+            result["device"] = {"platform": "gpu", "kind": name, "count": 1,
+                                "memory_peak_bytes": max(setup_peak,
+                                                         window_peak)}
+        else:
+            result["device"] = {"platform": "cpu", "kind": "cpu",
+                                "count": 0, "memory_peak_bytes": 0}
+        if trace_on:
+            result["device"].update(busy_s=busy_s, window_s=window_s)
+            result["breakdown"] = breakdown
+
+        program = seg.outputs()
+        del seg, segs, warm
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        r0 = time.perf_counter()
+        if reference_cache is not None and "outputs" in reference_cache:
+            ref = reference_cache["outputs"]
+        else:
+            ref = reference_outputs(xml, traffic, device)
+            if reference_cache is not None:
+                reference_cache["outputs"] = ref
+        out_dir = xml.parent / "output"
+        numbers = check.readings(
+            program, ref,
+            lambda kind, t: check.raster(out_dir / f"{kind}_{t:g}.tif"),
+            traffic, config["cell_size_m"])
+        correct, compared = check.judge(numbers, limits)
+        say(f"reference: {time.perf_counter() - r0:.3f} s, "
+            f"{numbers['reference_steps']} steps")
+        say("readings: " + json.dumps(numbers))
+        result["correct"] = correct
+        result["compared"] = compared
+        return result
+    finally:
+        gc.callbacks.remove(_gc_clock)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def reference_outputs(xml, traffic, device):
+    """The float64 reference's outputs at each of the traffic's sync
+    times (its output times and the segment's end), keyed by time."""
+    model = reference.load(xml)
+    times = sorted({float(t) for t in traffic["output_times_s"]}
+                   | {float(traffic["segment_s"])})
+    return dict(zip(times, reference.run(model, times, device)))
+
+
+def print_compared(result, stream=sys.stderr):
+    """The numbers compared, each beside its limit, as the last lines of
+    standard error."""
+    for name, c in result["compared"].items():
+        ok = "ok" if c["value"] <= c["limit"] else "FAIL"
+        print(f"{name} {c['value']!r} limit {c['limit']!r} {ok}",
+              file=stream, flush=True)
+

@@ -1,0 +1,14 @@
+"""device_idle_pct: the share of a segment's wall time in which no
+operation ran on the device, in %: one less the device's busy seconds in
+the traced segment (the union of its operations' intervals, not a sum
+of kernel times) over the wall seconds of the same segment run without
+the profiler.  Both segments run the same kernels, but the profiler
+slows this host-bound loop by about half, so its own window would count
+the profiler's cost as idle."""
+
+
+def read(ctx):
+    busy = ctx.trace.busy_s()
+    if not ctx.trace.device_ops or busy <= 0.0 or ctx.wall <= 0.0:
+        return None
+    return 100.0 * (1.0 - busy / ctx.wall)

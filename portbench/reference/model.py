@@ -1,0 +1,170 @@
+"""The plain reference run of a model directory, in float64.
+
+It reads the same XML, GeoTIFFs and CSVs the program reads and works out
+again what the program derives from them: the bed with its closed-edge
+walls (raised to 9999.9 on a ring as wide as the scheme's stencil, after
+the initial water is laid on the pristine bed), the initial state, the
+forcing mask (the grid minus that ring), the rain and loss series with
+their record interval and length, and the time controller's settings.
+It never shifts the vertical datum: that is a single-precision device.
+Then it steps the segment with ``swe.py``, as the program's host loop
+does: the boundaries, the scheme step, the CFL reduction and ``advance``
+at every step, a suspension at each sync time.
+
+Nothing here imports the program under test.
+"""
+
+from __future__ import annotations
+
+import xml.etree.ElementTree as ET
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import geotiff
+from . import swe
+
+RADIUS = {"godunov": 1, "muscl-hancock": 2}
+VERY_SMALL = 1e-10
+
+
+class Forcing(NamedTuple):
+    values: torch.Tensor
+    interval: float
+    length: float
+    is_loss: bool
+
+
+class Model(NamedTuple):
+    scheme: str
+    dx: float
+    duration: float
+    courant: float
+    dt0: float
+    vs: float
+    friction: bool
+    zb: np.ndarray          # with the walls
+    z0: np.ndarray
+    manning: float
+    forcings: list
+
+
+def _params(el):
+    return {p.get("name", "").strip().lower(): p.get("value", "").strip()
+            for p in el.findall("parameter")}
+
+
+def _series(path):
+    rows = []
+    for line in Path(path).read_text().splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    return np.asarray(rows)
+
+
+def load(xml_path) -> Model:
+    """The model of ``xml_path``: one cartesian domain, raster DEM and
+    optional raster depth, constant Manning n, uniform rain and loss."""
+    xml_path = Path(xml_path)
+    base = xml_path.parent
+    root = ET.parse(xml_path).getroot()
+    sim = root.find("simulation")
+    sp = _params(sim)
+    dom = sim.find("domainSet").find("domain")
+    data = dom.find("data")
+    src_dir = base / data.get("sourceDir", "")
+    rasters, manning = {}, 0.0
+    for ds in data.findall("dataSource"):
+        values = [v.strip().lower() for v in ds.get("value").split(",")]
+        if ds.get("type") == "constant":
+            manning = float(ds.get("source"))
+        else:
+            arr, cell, _ = geotiff.read(src_dir / ds.get("source"))
+            for v in values:
+                rasters[v] = (arr[::-1].copy(), cell)
+    zb0, dx = rasters["dem"]
+    scheme_el = dom.find("scheme")
+    scheme = scheme_el.get("name").strip().lower()
+    scheme = "muscl-hancock" if scheme == "musclhancock" else scheme
+    cp = _params(scheme_el)
+    ring = RADIUS[scheme]
+
+    z0 = zb0 + rasters["depth"][0] if "depth" in rasters else zb0.copy()
+    zb = zb0.copy()
+    bc = dom.find("boundaryConditions")
+    for edge_el in bc.findall("domainEdge"):
+        if edge_el.get("treatment", "closed").strip().lower() != "closed":
+            continue
+        edge = edge_el.get("edge").strip().lower()
+        sl = {"north": np.s_[-ring:, :], "south": np.s_[:ring, :],
+              "east": np.s_[:, -ring:], "west": np.s_[:, :ring]}[edge]
+        zb[sl] = swe.CLOSED_EDGE_ELEVATION
+    forcings = []
+    bc_dir = base / bc.get("sourceDir", "")
+    for ts in bc.findall("timeseries"):
+        s = _series(bc_dir / ts.get("source"))
+        forcings.append(Forcing(
+            values=torch.as_tensor(s[:, 1], dtype=torch.float64),
+            interval=float(s[1, 0] - s[0, 0]) if len(s) > 1 else 1.0,
+            length=float(s[-1, 0]),
+            is_loss=ts.get("value").strip().lower() in ("loss-rate", "loss")))
+    return Model(
+        scheme=scheme, dx=float(dx), duration=float(sp["duration"]),
+        courant=float(cp.get("courantnumber", 0.5)),
+        dt0=float(cp.get("timestepinitial", 0.01)),
+        vs=float(cp.get("drythreshold", VERY_SMALL)),
+        friction=cp.get("frictioneffects", "yes").lower()
+        not in ("no", "off", "false", "0"),
+        zb=zb, z0=z0, manning=manning, forcings=forcings)
+
+
+def run(model: Model, targets, device, check_every=64):
+    """Step ``model`` from its initial state through each sync time in
+    ``targets``, yielding at each a dict of its clock ``t``, its
+    ``t_hydro``, its successful ``steps`` and its ``state`` (z, zmax, qx,
+    qy, zb) as host float64 arrays."""
+    f64 = dict(dtype=torch.float64, device=device)
+    zb = torch.as_tensor(model.zb, **f64)
+    z = torch.as_tensor(model.z0, **f64)
+    state = (z, z.clone(), torch.zeros_like(z), torch.zeros_like(z))
+    n = torch.full_like(z, model.manning)
+    ring = RADIUS[model.scheme]
+    rows, cols = z.shape
+    yy = torch.arange(rows, device=device)[:, None]
+    xx = torch.arange(cols, device=device)[None, :]
+    mask = ((yy >= ring) & (yy < rows - ring)
+            & (xx >= ring) & (xx < cols - ring))
+    forcings = [f._replace(values=f.values.to(device))
+                for f in model.forcings]
+    step = (swe.godunov_step if model.scheme == "godunov"
+            else swe.muscl_step)
+    zero = torch.zeros((), **f64)
+    carry = swe.Carry(zero, torch.full((), model.dt0, **f64), zero,
+                      torch.zeros((), dtype=torch.long, device=device),
+                      torch.zeros((), dtype=torch.long, device=device))
+    quite_small = model.vs * 10.0
+    for target in targets:
+        sync = torch.full((), float(target), **f64)
+        tol = max(1e-5, 8.0 * float(torch.finfo(torch.float64).eps)
+                  * abs(target))
+        while float(carry.t) < target - tol:
+            for _ in range(check_every):
+                z, zmax, qx, qy = state
+                for f in forcings:
+                    z = swe.uniform_forcing(z, zmax, zb, mask, f.values,
+                                            f.interval, f.length, f.is_loss,
+                                            carry.t, carry.dt, carry.t_hydro)
+                state = step(z, zmax, qx, qy, zb, n, carry.dt, model.dx,
+                             model.dx, model.vs, model.friction)
+                speed = swe.max_wave_speed(*state, zb, quite_small)
+                carry = swe.advance(carry, speed, sync, model.duration,
+                                    model.dx, model.courant)
+            if not np.isfinite(float(carry.t)):
+                raise RuntimeError(f"reference diverged at t={target}")
+        yield {"t": float(carry.t), "t_hydro": float(carry.t_hydro),
+               "steps": int(carry.steps),
+               "state": [a.cpu().numpy() for a in (*state, zb)]}

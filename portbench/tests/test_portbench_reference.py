@@ -1,0 +1,91 @@
+"""The benchmark's float64 reference (portbench/reference/swe.py) against
+the frozen per-cell numpy oracles beside it, and its imports.
+
+Run from the repository root, without the root conftest.py (which sets
+up JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider portbench/tests
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from portbench.reference import swe
+from portbench.reference.oracle import godunov_step_oracle
+from portbench.reference.oracle_muscl import muscl_step_oracle
+
+REFERENCE = Path(__file__).resolve().parents[1] / "reference"
+FORBIDDEN = {"jax", "jaxlib", "flax", "hipims_tpu", "hipims_tpu_torch",
+             "chip_smoke", "kernel_ab", "tools"}
+
+
+def random_domain(seed, rows, cols, dry_fraction=0.4, disabled_fraction=0.1):
+    """An adversarial wet/dry state with disabled cells (the random domain
+    of tests/test_godunov_oracle.py, a07496d)."""
+    rng = np.random.default_rng(seed)
+    zb = rng.uniform(0.0, 3.0, (rows, cols))
+    depth = rng.uniform(0.0, 2.0, (rows, cols))
+    depth[rng.random((rows, cols)) < dry_fraction] = 0.0
+    z = zb + depth
+    qx = rng.uniform(-1.5, 1.5, (rows, cols)) * (depth > 0)
+    qy = rng.uniform(-1.5, 1.5, (rows, cols)) * (depth > 0)
+    zmax = z + rng.uniform(0.0, 0.5, (rows, cols))
+    disabled = rng.random((rows, cols)) < disabled_fraction
+    z[disabled] = -9999.0
+    zmax[disabled] = -9999.0
+    qx[disabled] = 0.0
+    qy[disabled] = 0.0
+    manning = rng.uniform(0.01, 0.06, (rows, cols))
+    return z, zmax, qx, qy, zb, manning
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock"])
+def test_step_matches_oracle(scheme, seed):
+    z, zmax, qx, qy, zb, n = random_domain(seed, 13, 17)
+    dt, dx = 0.01, 2.0
+    oracle = godunov_step_oracle if scheme == "godunov" else muscl_step_oracle
+    want = oracle(z, zmax, qx, qy, zb, n, dt, dx, dx)
+    step = swe.godunov_step if scheme == "godunov" else swe.muscl_step
+    got = step(*(torch.as_tensor(a) for a in (z, zmax, qx, qy, zb, n)),
+               torch.tensor(dt, dtype=torch.float64), dx, dx, 1e-10)
+    for name, g, w in zip(("z", "zmax", "qx", "qy"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12,
+                                   err_msg=name)
+
+
+def test_idle_step_keeps_state():
+    arrs = [torch.as_tensor(a) for a in random_domain(3, 9, 11)]
+    for step in (swe.godunov_step, swe.muscl_step):
+        out = step(*arrs, torch.tensor(-0.05, dtype=torch.float64), 1.0,
+                   1.0, 1e-10)
+        for o, a in zip(out, arrs):
+            assert torch.equal(o, a)
+
+
+def test_advance_lands_on_sync_and_suspends():
+    f = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
+    c = swe.Carry(f(9.9), f(0.05), f(0.0), torch.tensor(0), torch.tensor(0))
+    c = swe.advance(c, f(1.0), f(10.0), 600.0, 2.0, 0.5)
+    assert float(c.dt) == pytest.approx(0.05)       # what is left
+    c = swe.advance(c, f(1.0), f(10.0), 600.0, 2.0, 0.5)
+    assert float(c.t) == 10.0 and float(c.dt) < 0.0
+    c = swe.advance(c, f(1.0), f(10.0), 600.0, 2.0, 0.5)
+    assert float(c.t) == 10.0 and (int(c.steps), int(c.idle)) == (2, 1)
+
+
+def test_reference_imports_nothing_of_the_program():
+    for path in REFERENCE.glob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                tops = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not FORBIDDEN & set(tops), (path.name, tops)
