@@ -247,7 +247,8 @@ def _main(args, cluster: bool):
     wall = time.monotonic() - t0
     reporter.final(wall)
     if mesh is not None:
-        log.line(f"  Windows re-run: {sim.window_reruns}")
+        log.line(f"  Windows re-run: {sim.window_reruns} of "
+                 f"{sim.windows}")
     return 0
 
 

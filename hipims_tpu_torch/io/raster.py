@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.trace import span
+
 
 @dataclasses.dataclass
 class Raster:
@@ -109,15 +111,16 @@ class AscStripWriter:
 
     def write_rows(self, block):
         from ..native import asc_format_native
-        block = np.asarray(block, np.float64)
-        if block.ndim == 1:
-            block = block[None, :]
-        self._rows_in += block.shape[0]
-        body = asc_format_native(block)
-        if body is not None:
-            self._f.write(body)
-        else:
-            np.savetxt(self._f, block, fmt="%.6f")
+        with span("hipims.output.encode"):
+            block = np.asarray(block, np.float64)
+            if block.ndim == 1:
+                block = block[None, :]
+            self._rows_in += block.shape[0]
+            body = asc_format_native(block)
+            if body is not None:
+                self._f.write(body)
+            else:
+                np.savetxt(self._f, block, fmt="%.6f")
 
     def close(self):
         self._f.close()
@@ -315,37 +318,38 @@ class TiffStripWriter:
     def write_rows(self, block):
         """Append rows (map orientation: first call holds the NORTHERNMOST
         rows)."""
-        block = np.ascontiguousarray(np.asarray(block, np.float32))
-        if block.ndim == 1:
-            block = block[None, :]
-        # Real exceptions, not asserts: a short/wide-fed writer must fail
-        # loudly (python -O would strip asserts and emit a corrupt file).
-        if block.shape[1] != self.width:
-            raise ValueError(f"row width {block.shape[1]} != declared "
-                             f"{self.width}")
-        self._rows_in += block.shape[0]
-        if self._rows_in > self.height:
-            raise ValueError(f"received {self._rows_in} rows for a "
-                             f"{self.height}-row raster")
-        self._pending = (block if not self._pending.size
-                         else np.concatenate([self._pending, block]))
-        rps = self.rows_per_strip
-        while (self._pending.shape[0] >= rps
-               or (self._rows_in == self.height and self._pending.size)):
-            strip, self._pending = self._pending[:rps], self._pending[rps:]
-            raw = strip.tobytes()
-            if self.compress == "deflate":
-                raw = zlib.compress(raw, 6)
-            self._offsets.append(self._pos)
-            self._counts.append(len(raw))
-            self._f.write(raw)
-            self._pos += len(raw)
-            if self._pos % 2:
-                # TIFF 6.0: all offsets must be word-aligned; compressed
-                # strip lengths are arbitrary, so pad (byte counts keep
-                # the true strip length).
-                self._f.write(b"\0")
-                self._pos += 1
+        with span("hipims.output.encode"):
+            block = np.ascontiguousarray(np.asarray(block, np.float32))
+            if block.ndim == 1:
+                block = block[None, :]
+            # Real exceptions, not asserts: a short/wide-fed writer must fail
+            # loudly (python -O would strip asserts and emit a corrupt file).
+            if block.shape[1] != self.width:
+                raise ValueError(f"row width {block.shape[1]} != declared "
+                                 f"{self.width}")
+            self._rows_in += block.shape[0]
+            if self._rows_in > self.height:
+                raise ValueError(f"received {self._rows_in} rows for a "
+                                 f"{self.height}-row raster")
+            self._pending = (block if not self._pending.size
+                             else np.concatenate([self._pending, block]))
+            rps = self.rows_per_strip
+            while (self._pending.shape[0] >= rps
+                   or (self._rows_in == self.height and self._pending.size)):
+                strip, self._pending = self._pending[:rps], self._pending[rps:]
+                raw = strip.tobytes()
+                if self.compress == "deflate":
+                    raw = zlib.compress(raw, 6)
+                self._offsets.append(self._pos)
+                self._counts.append(len(raw))
+                self._f.write(raw)
+                self._pos += len(raw)
+                if self._pos % 2:
+                    # TIFF 6.0: all offsets must be word-aligned; compressed
+                    # strip lengths are arbitrary, so pad (byte counts keep
+                    # the true strip length).
+                    self._f.write(b"\0")
+                    self._pos += 1
 
     def close(self):
         if self._rows_in != self.height:

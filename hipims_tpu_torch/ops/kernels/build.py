@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ...utils.trace import span
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,10 +60,12 @@ def library(name: str, sources, headers=()) -> ctypes.CDLL:
         os.close(fd)
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
                *(str(CSRC / s) for s in sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with span("hipims.kernels.build"):
+            res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stderr}")
         os.replace(tmp, lib_path)
-    return ctypes.CDLL(str(lib_path))
+    with span("hipims.kernels.load"):
+        return ctypes.CDLL(str(lib_path))

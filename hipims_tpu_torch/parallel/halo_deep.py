@@ -100,6 +100,7 @@ from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
 from ..ops.timestep import advance, max_wave_speed
 from ..state import DomainStatic, FlowState, StepCarry
+from ..utils.trace import span
 from . import distributed
 from .mesh import Mesh, block_geometry
 
@@ -207,6 +208,7 @@ class HaloDeepBlocks:
         self.amortise = (dt_mode == "window" and window > 1
                          and ts_params.dynamic)
         self.reruns = 0
+        self.windows = 0
         self.rank = distributed.rank()
         self.distributed = distributed.world_size() > 1
         # Device tensors between ranks on this group; None: host-staged.
@@ -429,19 +431,23 @@ class HaloDeepBlocks:
         controller."""
         c = _carry_on(carry, b.device)
         params = self.params
-        bout = apply_boundaries(b.boundaries, st, b.static, c.t, c.dt,
-                                c.t_hydro, params, b.force_mask, comp=cm)
-        st, cm = bout if cm is not None else (bout, None)
+        if b.boundaries:
+            with span("hipims.step.boundaries"):
+                bout = apply_boundaries(b.boundaries, st, b.static, c.t,
+                                        c.dt, c.t_hydro, params,
+                                        b.force_mask, comp=cm)
+            st, cm = bout if cm is not None else (bout, None)
         mesh = dict(origin=b.origin, logical=self.logical,
                     speed_window=b.speed_window)
-        if self.scheme.name == "muscl-hancock":
-            out = muscl_step_split(st, b.static, c.dt, params,
-                                   self.muscl_variant, cm, **mesh)
-        else:
-            out = stencil_step(self.scheme.name, st, b.static, c.dt, params,
-                               comp=cm,
-                               simplified_speed=self.ts_params
-                               .simplified_speed, **mesh)
+        with span("hipims.step.scheme"):
+            if self.scheme.name == "muscl-hancock":
+                out = muscl_step_split(st, b.static, c.dt, params,
+                                       self.muscl_variant, cm, **mesh)
+            else:
+                out = stencil_step(self.scheme.name, st, b.static, c.dt,
+                                   params, comp=cm,
+                                   simplified_speed=self.ts_params
+                                   .simplified_speed, **mesh)
         return out[0], out[1], (out[2] if cm is not None else None)
 
     def _step_all(self, states, comps, carry):
@@ -450,12 +456,14 @@ class HaloDeepBlocks:
         carry's device (this rank's only)."""
         out = [self._one_step(b, st, cm, carry)
                for b, st, cm in zip(self.blocks, states, comps)]
-        return ([o[0] for o in out], [o[2] for o in out],
-                _max_on((o[1] for o in out), carry.t.device))
+        with span("hipims.mesh.max"):
+            gmax = _max_on((o[1] for o in out), carry.t.device)
+        return [o[0] for o in out], [o[2] for o in out], gmax
 
     def _advance(self, carry, speed, sync_time):
-        return advance(carry, speed, sync_time, self.end_time,
-                       self.params.dx, self.ts_params)
+        with span("hipims.step.advance"):
+            return advance(carry, speed, sync_time, self.end_time,
+                           self.params.dx, self.ts_params)
 
     def _frozen_window(self, states, comps, carry, g, sync_time):
         """``window`` steps on the frozen speed ``g`` (dt from g *
@@ -466,77 +474,87 @@ class HaloDeepBlocks:
             states, comps, local = self._step_all(states, comps, carry)
             carry = self._advance(carry, g * self.dt_safety, sync_time)
             smax = torch.maximum(smax, local)
-        return states, comps, carry, distributed.max_over_ranks(smax)
+        with span("hipims.mesh.max"):
+            smax = distributed.max_over_ranks(smax)
+        return states, comps, carry, smax
 
     def owned_max_speed(self, carry):
         """The max wave speed over every block's owned cells."""
-        return distributed.max_over_ranks(_max_on((max_wave_speed(
-            *(a[b.interior] for a in b.state), b.static.zb[b.interior],
-            self.params.quite_small, self.ts_params.simplified_speed)
-            for b in self.blocks), carry.t.device))
+        with span("hipims.mesh.max"):
+            return distributed.max_over_ranks(_max_on((max_wave_speed(
+                *(a[b.interior] for a in b.state), b.static.zb[b.interior],
+                self.params.quite_small, self.ts_params.simplified_speed)
+                for b in self.blocks), carry.t.device))
 
     def run_batch(self, carry: StepCarry, sync_time, n_windows: int):
         """``n_windows`` exchange windows of ``window`` steps each; returns
         the carry, with the batch's NaN probe folded in."""
-        states = [b.state for b in self.blocks]
-        comps = [b.comp for b in self.blocks]
-        ts, dx, safety = self.ts_params, self.params.dx, self.dt_safety
-        # One max seeds the first window's frozen speed.
-        g = self.owned_max_speed(carry) if self.amortise else None
-        for _ in range(n_windows):
-            self._refresh_all(states, comps)
-            if not self.amortise:
-                for _ in range(self.window):
-                    states, comps, gmax = self._step_all(states, comps,
-                                                         carry)
-                    gmax = distributed.max_over_ranks(gmax)
-                    carry = self._advance(carry, gmax, sync_time)
-                continue
-            saved = (states, comps, carry)
-            states, comps, carry, gobs = self._frozen_window(
-                states, comps, carry, g, sync_time)
-            # The window's dts came from g * dt_safety: valid iff the
-            # observed speed kept within the margin.  ~(<=): a NaN
-            # observed speed counts as violated.
-            tries = 0
-            while tries < MAX_RERUNS and bool(~(gobs <= g * safety)):
-                # A non-finite observed speed carries no value: double the
-                # frozen speed (halve the dt) instead.
-                g = torch.where(torch.isfinite(gobs), gobs, g * 2.0)
-                s0, m0, c0 = saved
-                # The carried-in dt came from the stale speed: cap it too,
-                # keeping the negative-dt suspension.
-                dt_cap = ts.courant * dx / (g * safety)
-                c0 = c0._replace(dt=torch.where(
-                    c0.dt > 0.0, torch.minimum(c0.dt, dt_cap), c0.dt))
+        with span("hipims.batch"):
+            states = [b.state for b in self.blocks]
+            comps = [b.comp for b in self.blocks]
+            ts, dx, safety = self.ts_params, self.params.dx, self.dt_safety
+            # One max seeds the first window's frozen speed.
+            g = self.owned_max_speed(carry) if self.amortise else None
+            for _ in range(n_windows):
+                with span("hipims.mesh.halo"):
+                    self._refresh_all(states, comps)
+                self.windows += 1
+                if not self.amortise:
+                    for _ in range(self.window):
+                        states, comps, gmax = self._step_all(states, comps,
+                                                             carry)
+                        with span("hipims.mesh.max"):
+                            gmax = distributed.max_over_ranks(gmax)
+                        carry = self._advance(carry, gmax, sync_time)
+                    continue
+                saved = (states, comps, carry)
                 states, comps, carry, gobs = self._frozen_window(
-                    s0, m0, c0, g, sync_time)
-                tries += 1
-                self.reruns += 1
-            # The observed max seeds the next window's frozen speed.
-            g = gobs
-        for b, st, cm in zip(self.blocks, states, comps):
-            b.state, b.comp = st, cm
-        # NaN/Inf probe, as in Simulation._run_batch: divergence poisons
-        # the batch statistic the host reads.  Every block's sum, added in
-        # block order on every rank.
-        sums = {b.index: torch.sum(b.state.z[b.interior]).reshape(1)
-                for b in self.blocks}
-        if self.distributed and self.device_group is not None:
-            # Each rank's blocks are a contiguous run of the layout, so the
-            # ranks' parts in rank order are the blocks in block order.
-            got = torch.cat(distributed.all_gather_device(
-                torch.cat([sums[b.index] for b in self.blocks])))
-            sums = {b.index: got[k] for k, b in enumerate(self.layout)}
-        elif self.distributed:
-            sums = self.exchange({k: v.cpu() for k, v in sums.items()},
-                                 lambda b: 1)
-        poison = None
-        for b in self.layout:
-            s = sums[b.index].reshape(()).to(carry.t.device)
-            poison = s if poison is None else poison + s
-        return carry._replace(batch_dt_total=carry.batch_dt_total
-                              + 0.0 * poison)
+                    states, comps, carry, g, sync_time)
+                # The window's dts came from g * dt_safety: valid iff the
+                # observed speed kept within the margin.  ~(<=): a NaN
+                # observed speed counts as violated.
+                tries = 0
+                while tries < MAX_RERUNS and bool(~(gobs <= g * safety)):
+                    # A non-finite observed speed carries no value: double
+                    # the frozen speed (halve the dt) instead.
+                    g = torch.where(torch.isfinite(gobs), gobs, g * 2.0)
+                    s0, m0, c0 = saved
+                    # The carried-in dt came from the stale speed: cap it
+                    # too, keeping the negative-dt suspension.
+                    dt_cap = ts.courant * dx / (g * safety)
+                    c0 = c0._replace(dt=torch.where(
+                        c0.dt > 0.0, torch.minimum(c0.dt, dt_cap), c0.dt))
+                    states, comps, carry, gobs = self._frozen_window(
+                        s0, m0, c0, g, sync_time)
+                    tries += 1
+                    self.reruns += 1
+                    self.windows += 1
+                # The observed max seeds the next window's frozen speed.
+                g = gobs
+            for b, st, cm in zip(self.blocks, states, comps):
+                b.state, b.comp = st, cm
+            # NaN/Inf probe, as in Simulation._run_batch: divergence poisons
+            # the batch statistic the host reads.  Every block's sum, added in
+            # block order on every rank.
+            sums = {b.index: torch.sum(b.state.z[b.interior]).reshape(1)
+                    for b in self.blocks}
+            with span("hipims.mesh.max"):
+                if self.distributed and self.device_group is not None:
+                    # Each rank's blocks are a contiguous run of the layout, so
+                    # the ranks' parts in rank order are the blocks in block
+                    # order.
+                    got = torch.cat(distributed.all_gather_device(
+                        torch.cat([sums[b.index] for b in self.blocks])))
+                    sums = {b.index: got[k] for k, b in enumerate(self.layout)}
+                elif self.distributed:
+                    sums = self.exchange({k: v.cpu() for k, v in sums.items()},
+                                         lambda b: 1)
+            poison = None
+            for b in self.layout:
+                s = sums[b.index].reshape(()).to(carry.t.device)
+                poison = s if poison is None else poison + s
+            return carry._replace(batch_dt_total=carry.batch_dt_total
+                                  + 0.0 * poison)
 
 
 class OwnedPlane:

@@ -27,6 +27,7 @@ from .. import constants as C
 from ..io.raster import Raster, write_raster
 from ..parallel.distributed import is_coordinator
 from ..utils import time_label
+from ..utils.trace import span
 
 NODATA = -9999.0
 _EPS = 1e-8
@@ -119,8 +120,9 @@ class GaugeOutputWriter:
         state, static = view.sample_cells(*idx)
         if not view.write_files:
             return
-        vals = derive_field(self.value, state, static, sim.domain.dx,
-                            datum=sim.domain.datum)
+        with span("hipims.output.derive"):
+            vals = derive_field(self.value, state, static, sim.domain.dx,
+                                datum=sim.domain.datum)
         # Derived fields set the sentinel exactly; a tight absolute
         # tolerance maps it to 0 without a wide isclose window around
         # real near--9999 values.
@@ -175,11 +177,12 @@ class _AssembleRows:
         self._rows.append(np.asarray(block))
 
     def close(self):
-        write_raster(self.path,
-                     Raster(data=np.concatenate(self._rows), xll=self.xll,
-                            yll=self.yll, cell_size=self.cell_size,
-                            nodata=NODATA),
-                     fmt=self.fmt)
+        with span("hipims.output.encode"):
+            write_raster(self.path,
+                         Raster(data=np.concatenate(self._rows),
+                                xll=self.xll, yll=self.yll,
+                                cell_size=self.cell_size, nodata=NODATA),
+                         fmt=self.fmt)
 
 
 class RasterOutputWriter:
@@ -225,8 +228,9 @@ class RasterOutputWriter:
         # One pass over the chunks feeds every target.
         for _r0, st, sc in view.stream_chunks(reverse=True):
             for tgt, sink in zip(self.targets, sinks):
-                field = derive_field(tgt["value"], st, sc, d.dx,
-                                     datum=d.datum)
+                with span("hipims.output.derive"):
+                    field = derive_field(tgt["value"], st, sc, d.dx,
+                                         datum=d.datum)
                 sink.write_rows(field[::-1])
         for sink in sinks:
             sink.close()

@@ -56,6 +56,7 @@ from ..parallel import distributed
 from ..parallel.halo_deep import HaloDeepBlocks, halo_pads
 from ..parallel.mesh import Mesh, block_geometry
 from ..state import DomainStatic, FlowState, initial_carry
+from ..utils.trace import span
 from . import sharded_io
 
 
@@ -119,14 +120,16 @@ class _Snapshot:
         rows = self._sim.domain.rows
         for r0 in sharded_io.chunk_starts(rows, self.chunk_rows, reverse):
             n = min(self.chunk_rows, rows - r0)
-            arrs = [sharded_io.host_rows(p, r0, n) for p in planes]
+            with span("hipims.output.snapshot"):
+                arrs = [sharded_io.host_rows(p, r0, n) for p in planes]
             yield r0, FlowState(*arrs[:4]), DomainStatic(*arrs[4:])
 
     def sample_cells(self, rows, cols):
         """(FlowState, DomainStatic) of the cells (rows[k], cols[k]) as (K,)
         host arrays."""
-        vals = [sharded_io.host_cells(self.plane(n), rows, cols)
-                for n in FlowState._fields + DomainStatic._fields]
+        with span("hipims.output.snapshot"):
+            vals = [sharded_io.host_cells(self.plane(n), rows, cols)
+                    for n in FlowState._fields + DomainStatic._fields]
         return FlowState(*vals[:4]), DomainStatic(*vals[4:])
 
     def __getattr__(self, name):
@@ -368,6 +371,12 @@ class Simulation:
         speed broke the frozen margin (``forecast_dt="window"``)."""
         return 0 if self._blocks is None else self._blocks.reruns
 
+    @property
+    def windows(self) -> int:
+        """Exchange windows stepped under a mesh, re-runs included (0 on
+        one device)."""
+        return 0 if self._blocks is None else self._blocks.windows
+
     # ------------------------------------------------------------------
     def _run_batch(self, state: FlowState, carry, static: DomainStatic,
                    sync_time, comp, n_steps: int):
@@ -376,28 +385,36 @@ class Simulation:
         params, ts = self.params, self.ts_params
         mask = self._force_mask
         end_time = self.config.duration
-        for _ in range(n_steps):
-            bout = apply_boundaries(self.boundaries, state, static, carry.t,
-                                    carry.dt, carry.t_hydro, params, mask,
-                                    comp=comp)
-            state, comp = bout if comp is not None else (bout, None)
-            if self.scheme.name == "muscl-hancock":
-                out = muscl_step_split(state, static, carry.dt, params,
-                                       self.config.muscl_variant, comp)
-            else:
-                out = stencil_step(self.scheme.name, state, static,
-                                   carry.dt, params, comp=comp,
-                                   simplified_speed=ts.simplified_speed)
-            state, speed = out[:2]
-            if comp is not None:
-                comp = out[2]
-            carry = advance(carry, speed, sync_time, end_time, params.dx, ts)
-        # NaN/Inf probe: a diverged state never reaches dt/t (non-finite
-        # cells mask as dry in the CFL), so fold a zero-scaled state sum
-        # into a statistic the host reads anyway: finite states add 0,
-        # divergence turns it NaN.
-        poison = 0.0 * torch.sum(state.z)
-        carry = carry._replace(batch_dt_total=carry.batch_dt_total + poison)
+        muscl = self.scheme.name == "muscl-hancock"
+        with span("hipims.batch"):
+            for _ in range(n_steps):
+                if self.boundaries:
+                    with span("hipims.step.boundaries"):
+                        bout = apply_boundaries(
+                            self.boundaries, state, static, carry.t,
+                            carry.dt, carry.t_hydro, params, mask, comp=comp)
+                    state, comp = bout if comp is not None else (bout, None)
+                with span("hipims.step.scheme"):
+                    if muscl:
+                        out = muscl_step_split(state, static, carry.dt, params,
+                                               self.config.muscl_variant, comp)
+                    else:
+                        out = stencil_step(
+                            self.scheme.name, state, static, carry.dt, params,
+                            comp=comp, simplified_speed=ts.simplified_speed)
+                state, speed = out[:2]
+                if comp is not None:
+                    comp = out[2]
+                with span("hipims.step.advance"):
+                    carry = advance(carry, speed, sync_time, end_time,
+                                    params.dx, ts)
+            # NaN/Inf probe: a diverged state never reaches dt/t (non-finite
+            # cells mask as dry in the CFL), so fold a zero-scaled state sum
+            # into a statistic the host reads anyway: finite states add 0,
+            # divergence turns it NaN.
+            poison = 0.0 * torch.sum(state.z)
+            carry = carry._replace(
+                batch_dt_total=carry.batch_dt_total + poison)
         return state, carry, comp
 
     def _read_carry(self):
@@ -432,7 +449,8 @@ class Simulation:
             else:
                 self.carry = self._blocks.run_batch(self.carry, sync,
                                                     self._batch_size)
-            host = self._read_carry()
+            with span("hipims.batch.read"):
+                host = self._read_carry()
             self._host_carry = host
             elapsed = time.perf_counter() - t0
             if self._blocks is not None and self._blocks.distributed:
@@ -465,8 +483,9 @@ class Simulation:
         batch from: batches seed their first frozen-speed window afresh,
         so ranks on batches of their own would step different windows."""
         world = distributed.world_size()
-        vals = distributed.all_gather_host(
-            torch.from_numpy(np.append(host, elapsed)), [6] * world)
+        with span("hipims.batch.agree"):
+            vals = distributed.all_gather_host(
+                torch.from_numpy(np.append(host, elapsed)), [6] * world)
         for r, v in enumerate(vals):
             if not np.array_equal(v[:5].numpy(), host, equal_nan=True):
                 raise RuntimeError(f"rank {r}'s carry {v[:5].tolist()} "
@@ -501,8 +520,9 @@ class Simulation:
     def output_view(self) -> _Snapshot:
         """A snapshot of the run for an output event: the streamed view,
         or a host copy of the state (``io_streaming``)."""
-        return (_StreamingSnapshot(self) if self.io_streaming()
-                else _OutputSnapshot(self))
+        with span("hipims.output.snapshot"):
+            return (_StreamingSnapshot(self) if self.io_streaming()
+                    else _OutputSnapshot(self))
 
     def emit_output(self, t: float):
         """One output event: take a snapshot (``output_view``), write the
@@ -512,12 +532,15 @@ class Simulation:
         checkpoint on rank 0)."""
         if self.output_writer is None and self.checkpoint_path is None:
             return
-        snap = self.output_view()
-        if self.checkpoint_path is not None:
-            from .checkpoint import save_checkpoint
-            save_checkpoint(self.checkpoint_path, self, snapshot=snap)
-        if self.output_writer is not None:
-            self.output_writer(snap, t)
+        with span("hipims.output.event"):
+            snap = self.output_view()
+            if self.checkpoint_path is not None:
+                from .checkpoint import save_checkpoint
+                with span("hipims.output.checkpoint"):
+                    save_checkpoint(self.checkpoint_path, self,
+                                    snapshot=snap)
+            if self.output_writer is not None:
+                self.output_writer(snap, t)
 
     def run(self, progress: Optional[Callable] = None):
         """Full run with outputs at every output_frequency interval.  On a

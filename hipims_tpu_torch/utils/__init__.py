@@ -1,4 +1,4 @@
-"""Logging, timing and misc utilities."""
+"""Logging, profiler spans and misc utilities."""
 
 
 def time_label(t) -> str:
