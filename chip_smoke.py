@@ -10,9 +10,10 @@ print that they did not run otherwise):
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both kernel libraries from the checkout's sources with nvcc, in
-   parallel: K1 and K4 (csrc/stencil.cu), and the MUSCL kernels K2, K3,
-   K5a-P, K5a-C and K5b (csrc/muscl_split.cu);
+2. build the three kernel libraries from the checkout's sources with nvcc,
+   in parallel: K1 and K4 (csrc/stencil.cu), the MUSCL kernels K2, K3,
+   K5a-P, K5a-C and K5b (csrc/muscl_split.cu), and the time controller
+   (csrc/timestep.cu);
 3. K1 against its plain PyTorch version on the card, f64 / f32 / f32c, at
    a 32x128 random case, 1408x1408, the ragged 1297x1681 (one row past a
    chunk and one column past a strip of the row-marching kernels, at
@@ -103,6 +104,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    port's numpy oracles (ops/oracle.py, ops/oracle_muscl.py: per-cell
    transcriptions of the reference, a second reference beside the plain
    versions), to 1e-12; prints the max difference;
+3f. the time controller's kernel (csrc/timestep.cu) against the plain
+   ``advance`` on the card, bit for bit in f32 and f64: a sweep of carries
+   and speeds taking every branch of the ladder (idle and NaN dt, speeds
+   0, inf and NaN, 0-d, one, 1000 and the dam break's 1,920 partials, a
+   NaN among them), the old carries untouched; then 4,600 chained steps of
+   a dam break's first 600 s at 1024x1792 (K2 + K3, f32c), carry by
+   carry; prints the branches taken and each call's host microseconds.
+   Every later phase's steps launch the kernel once a step (once a window
+   step on a mesh, on every rank);
 4j. the multi-process slice: the phase-4 model for 300 s (output at 300
    s, ``syncMethod="timestep"``) through the CLI as two ranks of one
    torch.distributed cluster (gloo), each a process of this script
@@ -708,11 +718,239 @@ def phase_muscl_vs_plain(torch, device):
     return worst, times
 
 
+# Phase 3f's sweep of the time controller: the values each case draws from.
+# Clocks on either side of the start (1 s) and early (60 s) limits; gaps to
+# the sync point on either side of VERY_SMALL (1e-10: in f32 near 600 s a
+# gap is 0 or ~6e-5) and negative; dt idle (negative, -0.0, 0), tiny and
+# NaN; speeds 0 (an inf dt, then clamped), tiny (the maximum), huge (the
+# start and global minima), inf and NaN; counters at the int32 edge.
+ADVANCE_T = (0.0, 1e-12, 0.5, 0.9999999, 1.0, 30.0, 59.99, 60.0, 299.7,
+             599.9999, 600.0, 1e4)
+ADVANCE_DT = (-0.3, -0.0, 0.0, 1e-12, 1e-10, 0.01, 0.13, 0.2, 2.0, 20.0,
+              float("nan"))
+ADVANCE_SPEED = (0.0, 1e-9, 1e-3, 3.0, 31.7, 1e12, float("inf"),
+                 float("nan"))
+ADVANCE_GAP = (0.0, 5e-11, 2e-10, 1e-7, 1e-3, 0.05, 0.3, 5.0, 100.0, -1.0)
+# The dam break's CFL partials: K3's blocks at 1024 x 1792.
+DAMBREAK_GRID = (1024, 1792)
+
+
+def advance_cases(seed, count, n_partials):
+    """``count`` random time-controller cases (dicts): a carry (t, dt,
+    t_hydro, total, ok, skipped), sync and end times, dx, courant,
+    fixed_dt, dynamic, and the speeds: a 0-d max, one partial, or
+    ``n_partials`` or 1000 partials whose max is the drawn speed, a NaN
+    among them in one case of four."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for _ in range(count):
+        t = float(rng.choice(ADVANCE_T))
+        sync = t + float(rng.choice(ADVANCE_GAP))
+        speed = float(rng.choice(ADVANCE_SPEED))
+        kind = int(rng.integers(4))
+        if kind < 2:
+            speeds = np.asarray(speed) if kind == 0 else np.asarray([speed])
+        else:
+            n = n_partials if kind == 2 else 1000
+            speeds = rng.uniform(0.0, 1.0, n) * min(speed, 1e6)
+            speeds[rng.integers(n)] = speed
+            if rng.integers(4) == 0:
+                speeds[rng.integers(n)] = np.nan
+        cases.append(dict(
+            t=t, dt=float(rng.choice(ADVANCE_DT)),
+            t_hydro=float(rng.choice((0.2, 0.99, 1.0, 1.02, 3.0))),
+            total=float(rng.choice((0.0, 1.5, 123.25))),
+            ok=int(rng.choice((0, 3, 2 ** 31 - 1))),
+            skipped=int(rng.choice((0, 1, 2 ** 31 - 1))), sync=sync,
+            end=float(rng.choice((sync, t + 0.1, 600.0, 1e6))),
+            dx=float(rng.choice((2.0, 10.0, 0.3))),
+            courant=float(rng.choice((0.5, 0.9, 0.3))),
+            fixed_dt=float(rng.choice((0.1, 0.2, 5e-11, 30.0))),
+            dynamic=bool(rng.integers(2)), speeds=speeds))
+    return cases
+
+
+def same_carries(torch, got, want):
+    """The fields of two lists of carries on which bits differ (NaN equal
+    to NaN, -0.0 unequal to 0.0), by name."""
+    from hipims_tpu_torch.state import StepCarry
+
+    bad = []
+    for k, name in enumerate(StepCarry._fields):
+        g = torch.stack([c[k] for c in got])
+        w = torch.stack([c[k] for c in want])
+        if g.is_floating_point():
+            nan = g.isnan()
+            if not torch.equal(nan, w.isnan()):
+                bad.append(name)
+                continue
+            bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+            g, w = (a.masked_fill(nan, 0.0).view(bits[a.dtype])
+                    for a in (g, w))
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad.append(name)
+    return bad
+
+
+def advance_branches(torch, cases, outs):
+    """How many of ``cases`` took each branch of the ladder, read from the
+    plain version's new carries ``outs``: idle steps, a landing on the
+    sync point, the suspension flip, the early cap, the end clamp, the
+    maximum, the minimum (global or start-up), an inf dt clamped, and a
+    NaN dt."""
+    t, dt, _, _, _, skipped = (torch.stack([o[k] for o in outs]).cpu()
+                               for k in range(6))
+    f = lambda key: torch.tensor([c[key] for c in cases]).to(t.dtype)  # noqa
+    zero_speed = torch.tensor([c["dynamic"] and c["speeds"].max() == 0.0
+                               for c in cases])
+    c = lambda v: torch.tensor(v, dtype=t.dtype)  # noqa: E731
+    hits = dict(
+        idle=skipped != torch.tensor([c_["skipped"] for c_ in cases],
+                                     dtype=torch.int32),
+        land=(dt > 0) & (dt == f("sync") - t), flip=dt < 0,
+        early=dt == c(0.1), end=dt == f("end") - t, maximum=dt == c(15.0),
+        minimum=dt == c(1e-10), inf_clamped=zero_speed & dt.isfinite(),
+        nan=dt.isnan())
+    return {k: int(v.sum()) for k, v in hits.items()}
+
+
+def phase_advance_vs_plain(torch, device, count=1500, chain_steps=4600,
+                           grid=DAMBREAK_GRID):
+    """Phase 3f: the time controller's kernel (``kernels.timestep.advance``)
+    against the plain ``advance`` on CUDA tensors, bit for bit, in f32 and
+    f64: ``count`` random cases each (``advance_cases``; every branch of
+    the ladder taken, NaN and a NaN among 1000 partials included), the old
+    carry left as it was; then ``chain_steps`` chained steps of the dam
+    break's first 600 s at ``grid`` (``advance_chain``), K3's partials to
+    both, carry by carry.  Returns a dict of counts and of the host
+    microseconds a call of each takes."""
+    from hipims_tpu_torch.ops import timestep as plain
+    from hipims_tpu_torch.ops.kernels import timestep as kernel
+    from hipims_tpu_torch.ops.kernels.geometry import march_geometry
+    from hipims_tpu_torch.state import StepCarry
+
+    n_partials = march_geometry(*DAMBREAK_GRID).partials
+    out = dict(cases=0, n_partials=n_partials, branches={})
+    for dtype in (torch.float32, torch.float64):
+        cases = advance_cases(17, count, n_partials)
+        f = lambda v: torch.tensor(v, dtype=dtype, device=device)  # noqa
+        got, want, olds, befores = [], [], [], []
+        for c in cases:
+            carry = StepCarry(
+                f(c["t"]), f(c["dt"]), f(c["t_hydro"]), f(c["total"]),
+                torch.tensor(c["ok"], dtype=torch.int32, device=device),
+                torch.tensor(c["skipped"], dtype=torch.int32, device=device))
+            before = StepCarry(*(v.clone() for v in carry))
+            speeds = torch.as_tensor(c["speeds"], device=device).to(dtype)
+            params = plain.TimestepParams(courant=c["courant"],
+                                          dynamic=c["dynamic"],
+                                          fixed_dt=c["fixed_dt"])
+            args = (speeds, f(c["sync"]), c["end"], c["dx"], params)
+            want.append(plain.advance(carry, *args))
+            got.append(kernel.advance(carry, *args))
+            olds.append(carry)
+            befores.append(before)
+        if same_carries(torch, olds, befores):
+            raise RuntimeError(f"phase 3f {dtype}: the kernel changed an "
+                               "old carry")
+        bad = same_carries(torch, got, want)
+        if bad:
+            k = next(i for i, (g, w) in enumerate(zip(got, want))
+                     if same_carries(torch, [g], [w]))
+            raise RuntimeError(
+                f"phase 3f {dtype}: {bad} differ; first case {cases[k]}: "
+                f"kernel {[v.item() for v in got[k]]}, plain "
+                f"{[v.item() for v in want[k]]}")
+        branches = advance_branches(torch, cases, want)
+        missing = [b for b, n in branches.items() if n == 0]
+        if missing:
+            raise RuntimeError(f"phase 3f {dtype}: no case took {missing}")
+        out["cases"] += len(cases)
+        out["branches"][str(dtype).split(".")[-1]] = branches
+    out.update(advance_chain(torch, device, chain_steps, grid=grid))
+    return out
+
+
+def dambreak_domain(rows, cols, dx=10.0):
+    """The benchmark's Malpasset-class valley (portbench/terrain, fixed
+    phases) at ``rows`` x ``cols`` cells of ``dx`` m: a 1% fall, a
+    parabolic cross-section rising 80 m, a 0.5 m crossed roughness and a
+    55 m reservoir behind a dam at 22.3% of the columns; Manning 0.033,
+    closed edges."""
+    from hipims_tpu_torch.domain import Domain
+
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    bed = (200.0 - xx * dx * 0.01
+           + ((yy - rows / 2.0) / (rows / 2.0)) ** 2 * 80.0
+           + 0.5 * np.sin(yy / 17.0 + 1.0) * np.sin(xx / 23.0 + 2.0))
+    dam = max(8, int(round(cols * 0.22321428571428573)))
+    depth = np.zeros((rows, cols))
+    depth[:, :dam] = np.maximum(0.0, bed[rows // 2, dam] + 55.0
+                                - bed[:, :dam])
+    domain = Domain(bed, 0.033, dx, dx)
+    domain.set_initial_depth(depth)
+    return domain
+
+
+def advance_chain(torch, device, steps=4600, duration=600.0,
+                  grid=DAMBREAK_GRID):
+    """``steps`` chained steps of the dam break (``dambreak_domain`` at
+    ``grid``, split12, f32c, sync and end at ``duration``): each
+    step's K3 partials go to the kernel and to the plain ``advance`` from
+    the same carry, the kernel's carry goes on, and every carry must be
+    equal bit for bit.  Then the host microseconds of one call of each,
+    on the chain's last carry and partials (a loop of 2,000, the device
+    waited for once at the end).  Returns the steps, idle steps and
+    times."""
+    from hipims_tpu_torch.ops import timestep as plain
+    from hipims_tpu_torch.ops.kernels import timestep as kernel
+    from hipims_tpu_torch.ops.kernels.muscl_split import muscl_step_split
+    from hipims_tpu_torch.runtime import Simulation, SimulationConfig
+
+    sim = Simulation(dambreak_domain(*grid),
+                     SimulationConfig(scheme="muscl-hancock",
+                                      duration=duration,
+                                      output_frequency=duration,
+                                      dtype="float32c"), device=device)
+    state, static, comp, carry = sim.state, sim.static, sim.comp, sim.carry
+    sync = torch.tensor(duration, dtype=sim.dtype, device=device)
+    args = (sync, duration, sim.params.dx, sim.ts_params)
+    got, want = [], []
+    for _ in range(steps):
+        state, speeds, comp = muscl_step_split(state, static, carry.dt,
+                                               sim.params, None, comp,
+                                               partials=True)
+        want.append(plain.advance(carry, speeds, *args))
+        carry = kernel.advance(carry, speeds, *args)
+        got.append(carry)
+    bad = same_carries(torch, got, want)
+    if bad:
+        k = next(i for i, (g, w) in enumerate(zip(got, want))
+                 if same_carries(torch, [g], [w]))
+        raise RuntimeError(f"phase 3f chain: {bad} differ first at step {k}")
+    wait = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else lambda: None)
+    us = {}
+    for name, fn in (("kernel", kernel.advance), ("plain", plain.advance)):
+        for reps in (20, 2000):
+            wait()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(carry, speeds, *args)
+            host = time.perf_counter() - t0
+            wait()
+        us[name] = host / reps * 1e6
+    return dict(chain_steps=int(carry.batch_successful),
+                chain_idle=int(carry.batch_skipped), chain_t=float(carry.t),
+                host_us=us)
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the port by name; each counts its launches
     in ``.launches``."""
-    from hipims_tpu_torch.ops.kernels import muscl_split, stencil
-    return {k.__name__: k for k in (*stencil.KERNELS, *muscl_split.KERNELS)}
+    from hipims_tpu_torch.ops.kernels import muscl_split, stencil, timestep
+    return {k.__name__: k for k in (*stencil.KERNELS, *muscl_split.KERNELS,
+                                    *timestep.KERNELS)}
 
 
 def _reset_launches():
@@ -1744,8 +1982,11 @@ def run_cards_main_path(root, rows, cols, duration, ref_root, cards,
     for label, r in (("(a)", a), ("(b)", b)):
         total = r["steps"] + r["idle"]
         if on_card:
+            # Every rank runs the controller on every step.
+            ranks = len(r["ranks"]) if r is b else 1
             _expect_launches(f"phase 4k {label}", r["launches"],
-                             {"godunov_fused": 4 * total})
+                             {"godunov_fused": 4 * total,
+                              "advance": ranks * total})
         if r["reads"] and (on_card or r is a):
             raise RuntimeError(f"phase 4k {label}: {r['reads']} host reads "
                                f"in {total} lock-step steps")
@@ -1982,14 +2223,15 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
 
-    # Phase 2: build both kernel libraries from the checkout's sources,
-    # one nvcc each, started together.
-    from hipims_tpu_torch.ops.kernels import muscl_split, stencil
+    # Phase 2: build the kernel libraries from the checkout's sources, one
+    # nvcc each, started together.
+    from hipims_tpu_torch.ops.kernels import muscl_split, stencil, timestep
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m._lib(), (stencil, muscl_split)))
-    print(f"phase 2: built K1 and K4 (csrc/stencil.cu) and the MUSCL kernels "
-          f"K2, K3, K5a-P, K5a-C and K5b (csrc/muscl_split.cu) in "
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m._lib(), (stencil, muscl_split, timestep)))
+    print(f"phase 2: built K1 and K4 (csrc/stencil.cu), the MUSCL kernels "
+          f"K2, K3, K5a-P, K5a-C and K5b (csrc/muscl_split.cu) and the time "
+          f"controller (csrc/timestep.cu) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # Phase 3: K1 against the plain version; 3b: the split MUSCL kernels;
@@ -2030,6 +2272,23 @@ def main() -> int:
                       oracle_diff.items())
           + f" (bar {TOL['f64'][1]:g}); {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # Phase 3f: the time controller's kernel against the plain advance
+    # (comparisons, not a main path's launches).
+    t0 = time.perf_counter()
+    adv = phase_advance_vs_plain(torch, device)
+    print(f"phase 3f: the advance kernel bit-equal to the plain advance on "
+          f"the card: {adv['cases']} cases in f32 and f64, CFL and fixed "
+          f"dt, 0-d, one, 1000 and {adv['n_partials']} partials, NaN "
+          f"included, old carries untouched (branches taken: "
+          + "; ".join(f"{k} " + ", ".join(f"{b} {n}" for b, n in v.items())
+                      for k, v in adv["branches"].items())
+          + f"); {adv['chain_steps'] + adv['chain_idle']} chained dam-break "
+          f"steps at {DAMBREAK_GRID[0]}x{DAMBREAK_GRID[1]} f32c "
+          f"({adv['chain_steps']} + {adv['chain_idle']} idle, t "
+          f"{adv['chain_t']:g} s) carry by carry; host us a call: kernel "
+          f"{adv['host_us']['kernel']:.1f}, plain "
+          f"{adv['host_us']['plain']:.1f}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     rows, cols = CASES[-1][:2]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2037,7 +2296,8 @@ def main() -> int:
         res = run_main_path(Path(tmp) / "main", "gpu", rows, cols,
                             600.0, 300.0)
         _expect_launches("phase 4", res["launches"], {
-            "godunov_fused": res["steps"] + res["idle"]})
+            "godunov_fused": res["steps"] + res["idle"],
+            "advance": res["steps"] + res["idle"]})
         print(_main_path_line("phase 4: main path", rows, cols, 600.0, res,
                               smi), flush=True)
 
@@ -2046,7 +2306,8 @@ def main() -> int:
                               150.0, 150.0, scheme="musclhancock")
         total = res_b["steps"] + res_b["idle"]
         _expect_launches("phase 4b", res_b["launches"], {
-            "muscl_predict": total, "muscl_correct": total})
+            "muscl_predict": total, "muscl_correct": total,
+            "advance": total})
         print(_main_path_line("phase 4b: MUSCL main path", rows, cols, 150.0,
                               res_b, smi), flush=True)
 
@@ -2055,7 +2316,8 @@ def main() -> int:
                              150.0, "recompute")
         total = res_c["steps"] + res_c["idle"]
         _expect_launches("phase 4c", res_c["launches"], {
-            "muscl_predict_base": total, "muscl_correct_recompute": total})
+            "muscl_predict_base": total, "muscl_correct_recompute": total,
+            "advance": total})
         print(f"phase 4c: MUSCL recompute variant through simulation_load"
               f"(xml).launch(blocking=False), {rows}x{cols} f32c, 150 s "
               f"simulated: "
@@ -2067,7 +2329,8 @@ def main() -> int:
         res_d = run_main_path(Path(tmp) / "inertial", "gpu", rows, cols,
                               300.0, 300.0, scheme="inertial")
         _expect_launches("phase 4d", res_d["launches"], {
-            "inertial_fused": res_d["steps"] + res_d["idle"]})
+            "inertial_fused": res_d["steps"] + res_d["idle"],
+            "advance": res_d["steps"] + res_d["idle"]})
         print(_main_path_line("phase 4d: inertial main path", rows, cols,
                               300.0, res_d, smi), flush=True)
 
@@ -2075,7 +2338,8 @@ def main() -> int:
         res_e = run_breach_path(Path(tmp) / "breach", "gpu", rows, cols,
                                 600.0, 300.0)
         _expect_launches("phase 4e", res_e["launches"], {
-            "godunov_fused": res_e["steps"] + res_e["idle"]})
+            "godunov_fused": res_e["steps"] + res_e["idle"],
+            "advance": res_e["steps"] + res_e["idle"]})
         setup_e = res_e["wall_s"] - res_e["run_s"]
         print(f"phase 4e: Thamesmead-class breach {rows}x{cols} f32c, 600 s "
               f"simulated: {res_e['steps']} steps (+{res_e['idle']} idle), "
@@ -2094,7 +2358,8 @@ def main() -> int:
         for run in ("a", "b"):
             r = res_f[run]
             _expect_launches(f"phase 4f run {run.upper()}", r["launches"], {
-                "godunov_fused": r["steps"] + r["idle"]})
+                "godunov_fused": r["steps"] + r["idle"],
+                "advance": r["steps"] + r["idle"]})
             events = format_events(res_f[f"events_{run}"])
             print(f"phase 4f: radar model run {run.upper()} {rows}x{cols} "
                   f"f32c, two HFA row bands, "
@@ -2121,7 +2386,8 @@ def main() -> int:
                                   300.0, 300.0, sync="timestep",
                                   extra=("--mesh-shape", "2x2"))
         _expect_launches("phase 4g", res_g["launches"], {
-            "godunov_fused": 4 * (res_g["steps"] + res_g["idle"])})
+            "godunov_fused": 4 * (res_g["steps"] + res_g["idle"]),
+            "advance": res_g["steps"] + res_g["idle"]})
         _same_rasters("phase 4g", Path(tmp) / "mesh", Path(tmp) / "main",
                       300.0)
         with first_card_only(torch):
@@ -2129,9 +2395,10 @@ def main() -> int:
                                    cols, 150.0, 150.0, scheme="musclhancock",
                                    sync="timestep",
                                    extra=("--mesh-shape", "2x2"))
-        total = 4 * (res_gb["steps"] + res_gb["idle"])
+        total = res_gb["steps"] + res_gb["idle"]
         _expect_launches("phase 4g MUSCL", res_gb["launches"], {
-            "muscl_predict": total, "muscl_correct": total})
+            "muscl_predict": 4 * total, "muscl_correct": 4 * total,
+            "advance": total})
         _same_rasters("phase 4g MUSCL", Path(tmp) / "mesh_muscl",
                       Path(tmp) / "muscl", 150.0)
         for label, r, one, dur, one_dur in (
@@ -2152,9 +2419,10 @@ def main() -> int:
         res_h = run_mesh_radar_path(Path(tmp) / "mesh_radar", "gpu", rows,
                                     cols, 300.0, 150.0,
                                     ref_root=Path(tmp) / "radar")
+        window_steps = (res_h["steps"] + res_h["idle"]
+                        + res_h["window"] * res_h["reruns"])
         _expect_launches("phase 4h", res_h["launches"], {
-            "godunov_fused": 2 * (res_h["steps"] + res_h["idle"]
-                                  + res_h["window"] * res_h["reruns"])})
+            "godunov_fused": 2 * window_steps, "advance": window_steps})
         for n, c in res_h["launches"].items():
             mesh_launches[n] += c
         print(f"phase 4h: radar model as a 2x1 mesh {rows}x{cols} f32c, "
@@ -2180,7 +2448,8 @@ def main() -> int:
         for run in ("a", "b", "g"):
             r = res_i[run]
             _expect_launches(f"phase 4i run {run.upper()}", r["launches"], {
-                "godunov_fused": r["steps"] + r["idle"]})
+                "godunov_fused": r["steps"] + r["idle"],
+                "advance": r["steps"] + r["idle"]})
             events = res_i[f"events_{run}"]
             streamed = all("snapshot" in e and "copy" not in e
                            for e in events)
@@ -2213,7 +2482,8 @@ def main() -> int:
                                     ref_root=Path(tmp) / "main")
         for r in res_j["ranks"]:
             _expect_launches(f"phase 4j rank {r['rank']}", r["launches"], {
-                "godunov_fused": res_j["steps"] + res_j["idle"]})
+                "godunov_fused": res_j["steps"] + res_j["idle"],
+                "advance": res_j["steps"] + res_j["idle"]})
         for n, c in res_j["launches"].items():
             mesh_launches[n] += c
         per_step = {label: r["run_s"] / (r["steps"] + r["idle"]) * 1e3
@@ -2305,9 +2575,10 @@ def main() -> int:
                                       128, 128, 120.0, 60.0)
         for n, c in res_5g["launches"].items():
             mesh_launches[n] += c
+        window_steps = (res_5g["steps"] + res_5g["idle"]
+                        + res_5g["window"] * res_5g["reruns"])
         _expect_launches("phase 5g", res_5g["launches"], {
-            "godunov_fused": 4 * (res_5g["steps"] + res_5g["idle"]
-                                  + res_5g["window"] * res_5g["reruns"])})
+            "godunov_fused": 4 * window_steps, "advance": window_steps})
         print(f"phase 5g: radar model 128x128 f32c as a 2x2 mesh, io_mode "
               f"stream on the card, each event against a gathered snapshot "
               f"of the same state: rasters, gauge CSV and every checkpoint "
@@ -2329,10 +2600,11 @@ def main() -> int:
                                    f"{[r['groups'] for r in res_5i['ranks']]}")
             for n, c in res_5i["launches"].items():
                 mesh_launches[n] += c
+            window_steps = (res_5i["steps"] + res_5i["idle"]
+                            + res_5i["window"] * res_5i["reruns"])
             _expect_launches("phase 5i", res_5i["launches"], {
-                "godunov_fused": 4 * (res_5i["steps"] + res_5i["idle"]
-                                      + res_5i["window"]
-                                      * res_5i["reruns"])})
+                "godunov_fused": 4 * window_steps,
+                "advance": len(res_5i["ranks"]) * window_steps})
             print(f"phase 5i: radar model 128x128 f32c streamed as a 2x2 mesh "
                   f"on {len(res_5i['ranks'])} ranks, one card each (device "
                   f"group nccl), against one process: rasters, gauge CSV "
@@ -2345,12 +2617,14 @@ def main() -> int:
                   f"{res_5i['launches']['godunov_fused']}", flush=True)
         for n, c in res_5h["launches"].items():
             mesh_launches[n] += c
-        for label, launches in (("5h ranks", res_5h["launches"]),
-                                ("5h one process", res_5h["one_launches"])):
+        window_steps = (res_5h["steps"] + res_5h["idle"]
+                        + res_5h["window"] * res_5h["reruns"])
+        for label, launches, ranks in (
+                ("5h ranks", res_5h["launches"], len(res_5h["ranks"])),
+                ("5h one process", res_5h["one_launches"], 1)):
             _expect_launches(f"phase {label}", launches, {
-                "godunov_fused": 4 * (res_5h["steps"] + res_5h["idle"]
-                                      + res_5h["window"]
-                                      * res_5h["reruns"])})
+                "godunov_fused": 4 * window_steps,
+                "advance": ranks * window_steps})
         print(f"phase 5h: radar model 128x128 f32c streamed as a 2x2 mesh on "
               f"two ranks (two blocks each) against one process, fixed "
               f"batches of 8 windows: rasters, gauge CSV and all "

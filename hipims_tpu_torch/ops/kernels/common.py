@@ -48,12 +48,15 @@ def check_planes(who, tensors, dt, comp):
                          "option")
 
 
-def launch_step(lib, name, who, inputs, state, comp, dt, n_partials, args):
+def launch_step(lib, name, who, inputs, state, comp, dt, n_partials, args,
+                partials=False):
     """Launch the step kernel ``name``_f32 or ``name``_f64 of ``lib``: it
     reads the planes ``inputs`` (pointers; None where the kernel takes no
     plane) and, in f32, ``comp``; writes the four planes of the new state,
     the new comp and ``n_partials`` partial CFL maxima; and takes
-    ``args`` after dt.  Returns (new_state, max_wave_speed[, comp_new])."""
+    ``args`` after dt.  Returns (new_state, max_wave_speed[, comp_new]):
+    the 0-d max of the partials, or with ``partials`` the 1-d partials
+    themselves, which ``timestep.advance`` folds in its own launch."""
     out = [torch.empty_like(state.z) for _ in range(4)]
     comp_out = torch.empty_like(comp) if comp is not None else None
     speeds = torch.empty(n_partials, dtype=state.z.dtype,
@@ -71,9 +74,8 @@ def launch_step(lib, name, who, inputs, state, comp, dt, n_partials, args):
             err = getattr(lib, f"{name}_f64")(*inputs, *optr, *tail)
     raise_on(err, who)
     new = FlowState(*out)
-    if comp is None:
-        return new, torch.amax(speeds)
-    return new, torch.amax(speeds), comp_out
+    speed = speeds if partials else torch.amax(speeds)
+    return (new, speed) if comp is None else (new, speed, comp_out)
 
 
 def mesh_window(shape, origin=None, logical=None, speed_window=None):

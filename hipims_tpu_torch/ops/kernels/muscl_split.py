@@ -200,7 +200,7 @@ def _spacing(params):
 
 
 def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
-                  window=None, chunk=None):
+                  window=None, chunk=None, partials=False):
     """Launch the row-marching corrector, K3 (``slopes`` LOADED, K2's 12
     planes) or K5a-C (REBUILT, K5a-P's 4 base planes), with the mesh
     ``window`` (``common.mesh_window``; None: the whole grid) on the
@@ -214,10 +214,11 @@ def _correct_cuda(state, static, pred, dt, params, comp, slopes=LOADED,
     window = window or mesh_window(state.z.shape)
     return launch_step(_lib(), "muscl_correct", who, inputs, state, comp, dt,
                        geom.partials, (*state.z.shape, *geom.args(), *window,
-                                       *_spacing(params), slopes))
+                                       *_spacing(params), slopes), partials)
 
 
-def _fused_cuda(state, static, dt, params, comp, window=None, chunk=None):
+def _fused_cuda(state, static, dt, params, comp, window=None, chunk=None,
+                partials=False):
     """Launch K5b, the row-marching corrector with slopes and base
     PREDICTED from the state, with the mesh ``window``
     (``common.mesh_window``; None: the whole grid) on the geometry of its
@@ -231,7 +232,7 @@ def _fused_cuda(state, static, dt, params, comp, window=None, chunk=None):
     return launch_step(_lib(), "muscl_fused", "muscl_fused", inputs, state,
                        comp, dt, geom.partials, (*state.z.shape,
                                                  *geom.args(), *window,
-                                                 *_spacing(params)))
+                                                 *_spacing(params)), partials)
 
 
 def muscl_predict(state: FlowState, static, dt, params: SchemeParams):
@@ -254,7 +255,8 @@ def muscl_predict_base(state: FlowState, static, dt, params: SchemeParams):
 
 
 def muscl_correct(state: FlowState, static, pred, dt, params: SchemeParams,
-                  comp=None, origin=None, logical=None, speed_window=None):
+                  comp=None, origin=None, logical=None, speed_window=None,
+                  partials=False):
     """K3: the corrector on K2's 12 planes, the two-cell static ring and
     the CFL max.  Returns as ``muscl_correct_plain``."""
     if not on_card("muscl_correct", state):
@@ -262,14 +264,14 @@ def muscl_correct(state: FlowState, static, pred, dt, params: SchemeParams,
                                    origin, logical, speed_window)
     out = _correct_cuda(state, static, pred, dt, params, comp, LOADED,
                         mesh_window(state.z.shape, origin, logical,
-                                    speed_window))
+                                    speed_window), partials=partials)
     muscl_correct.launches += 1
     return out
 
 
 def muscl_correct_recompute(state: FlowState, static, pred, dt,
                             params: SchemeParams, comp=None, origin=None,
-                            logical=None, speed_window=None):
+                            logical=None, speed_window=None, partials=False):
     """K5a-C: the corrector on K5a-P's 4 base planes, rebuilding the
     limited slopes from the state.  Returns as ``muscl_correct_plain``."""
     if not on_card("muscl_correct_recompute", state):
@@ -277,14 +279,14 @@ def muscl_correct_recompute(state: FlowState, static, pred, dt,
                                    origin, logical, speed_window)
     out = _correct_cuda(state, static, pred, dt, params, comp, REBUILT,
                         mesh_window(state.z.shape, origin, logical,
-                                    speed_window))
+                                    speed_window), partials=partials)
     muscl_correct_recompute.launches += 1
     return out
 
 
 def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
                 comp=None, simplified_speed=False, origin=None, logical=None,
-                speed_window=None):
+                speed_window=None, partials=False):
     """K5b: one whole MUSCL-Hancock step + CFL max in one launch, with the
     mesh options of a halo-extended block.  Returns as
     ``muscl_step_plain``.  The CFL speed is always the full one: the
@@ -297,7 +299,7 @@ def muscl_fused(state: FlowState, static, dt, params: SchemeParams,
                                 origin, logical, speed_window)
     out = _fused_cuda(state, static, dt, params, comp,
                       mesh_window(state.z.shape, origin, logical,
-                                  speed_window))
+                                  speed_window), partials=partials)
     muscl_fused.launches += 1
     return out
 
@@ -312,7 +314,7 @@ for _k in (*KERNELS, muscl_fused):
 
 def muscl_step_split(state: FlowState, static, dt, params: SchemeParams,
                      variant=None, comp=None, origin=None, logical=None,
-                     speed_window=None):
+                     speed_window=None, partials=False):
     """One MUSCL-Hancock step as predictor + corrector, and its CFL max.
 
     Returns (new_state, max_wave_speed), plus the updated compensation
@@ -320,8 +322,8 @@ def muscl_step_split(state: FlowState, static, dt, params: SchemeParams,
     the corrector touches it.  ``variant`` picks the kernel pair:
     "split12" (the default, as in the JAX package) or "recompute".  ``dt``
     is a 0-d tensor on the state's device; the two-cell edge ring keeps
-    its values.  The mesh options (``stencil.stencil_step``) go to the
-    corrector of either variant."""
+    its values.  The mesh options and ``partials`` (``stencil.stencil_step``)
+    go to the corrector of either variant."""
     variant = "split12" if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"unknown MUSCL split variant '{variant}'")
@@ -332,4 +334,4 @@ def muscl_step_split(state: FlowState, static, dt, params: SchemeParams,
         pred = muscl_predict_base(state, static, dt, params)
         correct = muscl_correct_recompute
     return correct(state, static, pred, dt, params, comp, origin, logical,
-                   speed_window)
+                   speed_window, partials)

@@ -71,7 +71,7 @@ def _planes(state, static, comp):
 
 
 def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
-                  window=None, chunk=None):
+                  window=None, chunk=None, partials=False):
     """Launch K1 with the mesh ``window`` (``common.mesh_window``; None:
     the whole grid) on the row-marching geometry of its grid, ``chunk``
     rows per block unless ``geometry.march_geometry`` picks them."""
@@ -85,11 +85,11 @@ def _godunov_cuda(state, static, dt, params, comp, simplified_speed,
             int(simplified_speed))
     return launch_step(_lib(), "godunov_step", "godunov step",
                        [t.data_ptr() for t in (*state, *static)], state,
-                       comp, dt, geom.partials, args)
+                       comp, dt, geom.partials, args, partials)
 
 
 def _inertial_cuda(state, static, dt, params, comp, simplified_speed,
-                   window=None, chunk=None):
+                   window=None, chunk=None, partials=False):
     """Launch K4 with the mesh ``window`` on the row-marching geometry of
     its grid, as K1."""
     check_planes("inertial step", _planes(state, static, comp), dt, comp)
@@ -101,7 +101,7 @@ def _inertial_cuda(state, static, dt, params, comp, simplified_speed,
             params.very_small, params.quite_small, int(simplified_speed))
     return launch_step(_lib(), "inertial_step", "inertial step",
                        [t.data_ptr() for t in (*state, *static)], state,
-                       comp, dt, geom.partials, args)
+                       comp, dt, geom.partials, args, partials)
 
 
 def stencil_step_plain(state: FlowState, static, dt, params: SchemeParams,
@@ -130,7 +130,7 @@ def inertial_step_plain(state: FlowState, static, dt, params: SchemeParams,
 
 def godunov_fused(state: FlowState, static, dt, params: SchemeParams,
                   comp=None, simplified_speed=False, origin=None,
-                  logical=None, speed_window=None):
+                  logical=None, speed_window=None, partials=False):
     """K1: one first-order Godunov step + CFL max."""
     if not on_card("godunov_fused", state):
         return stencil_step_plain(state, static, dt, params, comp,
@@ -138,14 +138,14 @@ def godunov_fused(state: FlowState, static, dt, params: SchemeParams,
                                   speed_window)
     out = _godunov_cuda(state, static, dt, params, comp, simplified_speed,
                         mesh_window(state.z.shape, origin, logical,
-                                    speed_window))
+                                    speed_window), partials=partials)
     godunov_fused.launches += 1
     return out
 
 
 def inertial_fused(state: FlowState, static, dt, params: SchemeParams,
                    comp=None, simplified_speed=True, origin=None,
-                   logical=None, speed_window=None):
+                   logical=None, speed_window=None, partials=False):
     """K4: one partial-inertial step + CFL max."""
     if not on_card("inertial_fused", state):
         return inertial_step_plain(state, static, dt, params, comp,
@@ -153,7 +153,7 @@ def inertial_fused(state: FlowState, static, dt, params: SchemeParams,
                                    speed_window)
     out = _inertial_cuda(state, static, dt, params, comp, simplified_speed,
                          mesh_window(state.z.shape, origin, logical,
-                                     speed_window))
+                                     speed_window), partials=partials)
     inertial_fused.launches += 1
     return out
 
@@ -170,7 +170,8 @@ PLAIN = {"godunov": stencil_step_plain, "inertial": inertial_step_plain,
 
 def stencil_step(scheme: str, state: FlowState, static, dt,
                  params: SchemeParams, comp=None, simplified_speed=False,
-                 origin=None, logical=None, speed_window=None):
+                 origin=None, logical=None, speed_window=None,
+                 partials=False):
     """One fused step + CFL reduction of ``scheme``.
 
     Returns (new_state, max_wave_speed), or (new_state, max_wave_speed,
@@ -182,13 +183,15 @@ def stencil_step(scheme: str, state: FlowState, static, dt,
     grid's rows, cols) and ``speed_window`` (r0, nr, c0, nc: the owned
     cells) also freeze the logical grid's ring (two cells for
     MUSCL-Hancock) in global coordinates and restrict the max to the
-    owned cells (``common.mesh_window``).  CUDA tensors launch the
-    scheme's kernel (K1, K4 or K5b); CPU tensors take its plain
-    version."""
+    owned cells (``common.mesh_window``).  With ``partials`` the kernel's
+    1-d partial maxima come back in the max's place, unreduced, for
+    ``kernels.timestep.advance`` to fold (the plain version's max stays
+    0-d).  CUDA tensors launch the scheme's kernel (K1, K4 or K5b); CPU
+    tensors take its plain version."""
     if scheme not in _BY_SCHEME:
         raise ValueError(f"stencil_step: unknown scheme {scheme!r}; "
                          f"expected one of {sorted(_BY_SCHEME)}")
     return _BY_SCHEME[scheme](state, static, dt, params, comp=comp,
                               simplified_speed=simplified_speed,
                               origin=origin, logical=logical,
-                              speed_window=speed_window)
+                              speed_window=speed_window, partials=partials)

@@ -64,8 +64,12 @@ def advance(carry: StepCarry, max_speed, sync_time, end_time, dx,
     exceeds its own timestep; the new dt is CFL-limited, then clamped by
     the start-up floor, the global minimum, the sync-time suspension flip,
     the early-simulation cap, the end time and the global maximum, in that
-    order.  ``max_speed`` and ``sync_time`` are 0-d tensors; max_speed == 0
-    gives dx / 0 = inf, which the later clamps cap."""
+    order.  ``sync_time`` is a 0-d tensor and ``max_speed`` a 0-d tensor
+    or a step kernel's 1-d partial maxima, whose max (NaN propagating) it
+    takes; max_speed == 0 gives dx / 0 = inf, which the later clamps cap.
+    ``ops/kernels/timestep.py`` runs the same ladder as one CUDA kernel."""
+    if max_speed.dim() > 0:
+        max_speed = torch.amax(max_speed)
     dt_eff = torch.clamp(carry.dt, min=0.0)
     t_new = carry.t + dt_eff
     batch_total = carry.batch_dt_total + dt_eff

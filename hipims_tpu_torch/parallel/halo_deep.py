@@ -30,7 +30,10 @@ a process group (below):
      max per window, and a re-run from the window's saved start when the
      observed speed breaks the margin (at most 4 re-runs, after which the
      window is accepted as the JAX package accepts it; ``reruns`` counts
-     them).
+     them).  On the card the controller is one kernel
+     (``ops/kernels/timestep.py``), given the 0-d max or the frozen
+     speed; it writes a new carry, so a window's saved start stays as it
+     was.
 
 The blocks stay extended between batches: the state never passes through
 one full-grid tensor on the way.  Re-extending it at each batch, as the
@@ -98,7 +101,8 @@ import torch.distributed as dist
 from ..ops.boundaries import apply_boundaries, interior_force_mask
 from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
-from ..ops.timestep import advance, max_wave_speed
+from ..ops.kernels.timestep import advance
+from ..ops.timestep import max_wave_speed
 from ..state import DomainStatic, FlowState, StepCarry
 from ..utils.trace import span
 from . import distributed

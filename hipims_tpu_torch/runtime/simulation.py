@@ -4,7 +4,8 @@ A batch is a Python loop of K steps of on-device work: boundaries ->
 scheme step with its CFL partial max (on the card: kernel K1 for Godunov,
 K4 for partial-inertial, the MUSCL predictor + corrector kernels for
 MUSCL-Hancock) -> the time
-controller ``advance``.  dt and t stay on the device as 0-d tensors,
+controller ``advance`` (on the card one kernel, which also folds the
+scheme kernel's CFL partials).  dt and t stay on the device as 0-d tensors,
 and the reference's negative-dt suspension makes steps past the sync time
 idle, so the host reads back once per batch (t, dt, counters), like the
 reference's readKeyStatistics, and sizes the next batch toward a
@@ -51,7 +52,8 @@ from ..ops.boundaries import apply_boundaries, interior_force_mask
 from ..ops.godunov import SchemeParams
 from ..ops.kernels.muscl_split import muscl_step_split
 from ..ops.kernels.stencil import stencil_step
-from ..ops.timestep import TimestepParams, advance
+from ..ops.kernels.timestep import advance
+from ..ops.timestep import TimestepParams
 from ..parallel import distributed
 from ..parallel.halo_deep import HaloDeepBlocks, halo_pads
 from ..parallel.mesh import Mesh, block_geometry
@@ -394,14 +396,18 @@ class Simulation:
                             self.boundaries, state, static, carry.t,
                             carry.dt, carry.t_hydro, params, mask, comp=comp)
                     state, comp = bout if comp is not None else (bout, None)
+                # The scheme kernel's CFL partials go to advance's kernel
+                # unreduced: it folds them in the same launch.
                 with span("hipims.step.scheme"):
                     if muscl:
                         out = muscl_step_split(state, static, carry.dt, params,
-                                               self.config.muscl_variant, comp)
+                                               self.config.muscl_variant, comp,
+                                               partials=True)
                     else:
                         out = stencil_step(
                             self.scheme.name, state, static, carry.dt, params,
-                            comp=comp, simplified_speed=ts.simplified_speed)
+                            comp=comp, simplified_speed=ts.simplified_speed,
+                            partials=True)
                 state, speed = out[:2]
                 if comp is not None:
                     comp = out[2]

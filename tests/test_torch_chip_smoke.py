@@ -270,8 +270,11 @@ def test_breach_writer_matches_bench_e2e(tmp_path):
 
 def test_kernel_bounds():
     """Every kernel of the port has a cost entry; the bounds of the
-    fused steps at 9.04 M cells are PERF.md's 40 / 48 / 80 B/cell."""
-    assert set(chip_smoke.KERNEL_COST) == set(chip_smoke.kernel_wrappers())
+    fused steps at 9.04 M cells are PERF.md's 40 / 48 / 80 B/cell.  The
+    time controller's kernel moves no plane (its cost is its launch), so
+    it is the one wrapper without a cost entry."""
+    assert (set(chip_smoke.KERNEL_COST) | {"advance"}
+            == set(chip_smoke.kernel_wrappers()))
     cells = 2944 * 3072
     for mode, want in (("f32", 0.108), ("f32c", 0.130), ("f64", 0.216)):
         ms, by = chip_smoke.kernel_bound("inertial_fused", mode, cells, 0.5)
@@ -477,3 +480,18 @@ def test_ranks_stream_path_on_cpu(tmp_path):
                                            interval=10.0, device="cpu")
     assert res["window"] == 3 and res["steps"] > 0
     assert "comp" in res["members"] and "batch_skipped" in res["members"]
+
+
+def test_phase_3f_rehearsed_on_the_cpu():
+    """Phase 3f on CPU tensors, where the wrapper runs the plain version:
+    the sweep takes every branch of the ladder in both dtypes, and the
+    dam break's chain (here 48 x 80, 120 steps) runs carry by carry."""
+    res = chip_smoke.phase_advance_vs_plain(torch, torch.device("cpu"),
+                                            count=300, chain_steps=120,
+                                            grid=(48, 80))
+    assert res["cases"] == 600 and res["n_partials"] == 1920
+    for branches in res["branches"].values():
+        assert all(n > 0 for n in branches.values()), branches
+    assert res["chain_steps"] + res["chain_idle"] == 120
+    assert res["chain_steps"] > 0 and res["chain_t"] > 0.0
+    assert set(res["host_us"]) == {"kernel", "plain"}

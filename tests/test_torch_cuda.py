@@ -575,3 +575,66 @@ def test_mesh_over_cards_equals_one_card(sync):
         assert torch.equal(a, b.to(a.device))
     for b in sim._blocks.blocks:
         assert all(a.device == b.device for a in (*b.state, b.comp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_advance_kernel_bit_equal_to_plain(dtype):
+    """The time controller's kernel against the plain advance on the
+    card, over chip_smoke's sweep (every branch of the ladder, idle and
+    NaN dt, speeds 0, inf and NaN, 0-d, one, 1000 and 1920 partials, a NaN
+    among them): the new carries are equal bit for bit, the old carries
+    unchanged, and the kernel launched once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chip_smoke import advance_cases, same_carries
+    from hipims_tpu_torch.ops import timestep as plain
+    from hipims_tpu_torch.ops.kernels import timestep as kt
+    from hipims_tpu_torch.state import StepCarry
+
+    def f(v):
+        return torch.tensor(v, dtype=dtype, device="cuda")
+
+    got, want, olds, befores = [], [], [], []
+    cases = advance_cases(5, 400, 1920)
+    before = kt.advance.launches
+    for c in cases:
+        carry = StepCarry(
+            f(c["t"]), f(c["dt"]), f(c["t_hydro"]), f(c["total"]),
+            torch.tensor(c["ok"], dtype=torch.int32, device="cuda"),
+            torch.tensor(c["skipped"], dtype=torch.int32, device="cuda"))
+        befores.append(StepCarry(*(v.clone() for v in carry)))
+        args = (torch.as_tensor(c["speeds"], device="cuda").to(dtype),
+                f(c["sync"]), c["end"], c["dx"],
+                plain.TimestepParams(courant=c["courant"],
+                                     dynamic=c["dynamic"],
+                                     fixed_dt=c["fixed_dt"]))
+        want.append(plain.advance(carry, *args))
+        got.append(kt.advance(carry, *args))
+        olds.append(carry)
+    assert kt.advance.launches == before + len(cases)
+    assert same_carries(torch, got, want) == []
+    assert same_carries(torch, olds, befores) == []
+
+
+@pytest.mark.cuda
+def test_advance_kernel_rejects_bad_inputs():
+    """The wrapper raises on what the kernel does not take: mixed dtypes,
+    a 2-d or empty speed, counters that are not int32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from hipims_tpu_torch.ops import timestep as plain
+    from hipims_tpu_torch.ops.kernels import timestep as kt
+    from hipims_tpu_torch.state import initial_carry
+
+    carry = initial_carry(torch.float32, "cuda")
+    sync = torch.tensor(10.0, device="cuda")
+    params = plain.TimestepParams()
+    for speed, c in (
+            (torch.ones((), dtype=torch.float64, device="cuda"), carry),
+            (torch.ones(2, 3, device="cuda"), carry),
+            (torch.ones(0, device="cuda"), carry),
+            (torch.ones((), device="cuda"),
+             carry._replace(batch_skipped=carry.batch_skipped.long()))):
+        with pytest.raises(ValueError):
+            kt.advance(c, speed, sync, 100.0, 2.0, params)

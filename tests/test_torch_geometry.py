@@ -170,9 +170,10 @@ def test_corrector_halos_match_muscl_source(monkeypatch):
     # partials it hands the C entry point.
     seen = {}
 
-    def launch(lib, name, who, inputs, state, comp, dt, n_partials, args):
+    def launch(lib, name, who, inputs, state, comp, dt, n_partials, args,
+               unreduced=False):
         seen.update(name=name, inputs=len(inputs), partials=n_partials,
-                    args=args)
+                    args=args, unreduced=unreduced)
 
     monkeypatch.setattr(ms, "launch_step", launch)
     monkeypatch.setattr(ms, "_lib", lambda: None)
@@ -189,5 +190,6 @@ def test_corrector_halos_match_muscl_source(monkeypatch):
                             partials=geom.partials,
                             args=(rows, cols, *geom.args(),
                                   *mesh_window((rows, cols)), 0.5, 0.5,
-                                  params.very_small, params.quite_small, 1))
+                                  params.very_small, params.quite_small, 1),
+                            unreduced=False)
     assert geom.grid == (2, 5)
