@@ -84,13 +84,18 @@ def _gaps(prefix, got, want, cell_area):
     }
 
 
-def readings(program, reference, fields, traffic, cell_size):
+def readings(program, reference, fields, traffic, cell_size, settle=None):
     """Every number of the comparison.  ``program`` and each of
     ``reference`` (keyed by sync time) are dicts of the clock ``t``, the
     hydrological interval ``t_hydro`` and the ``state`` (z, zmax, qx, qy,
     zb host arrays, domain orientation) at the segment's end; the
     reference's also its ``steps``.  ``fields(kind, t)`` is the program's
-    raster of ``kind`` written at the output time ``t``."""
+    raster of ``kind`` written at the output time ``t``.  With
+    ``settle(state, t, t_hydro)``, the free surface with the forcing
+    still owed added (reference/model.py ``settle``), the ``settled_depth``
+    numbers compare both sides' end states settled: rain and loss that
+    each side owes for the seconds since its boundaries last forced,
+    which its own steps decide, no longer count as a gap."""
     seg = float(traffic["segment_s"])
     area = cell_size * cell_size
     ref_end = reference[seg]
@@ -104,6 +109,14 @@ def readings(program, reference, fields, traffic, cell_size):
         for kind in traffic["outputs"]:
             out.update(_gaps(f"raster_{kind}", fields(kind, float(t)),
                              field(kind, ref), area))
+    if settle is not None:
+        ends = [(side["state"], settle(side["state"], side["t"],
+                                       side["t_hydro"]))
+                for side in (program, ref_end)]
+        out.update(_gaps("settled_depth",
+                         *(_depth(zs, st[4]) for st, zs in ends), area))
+    out["program_volume_m3"] = float(got.sum()) * area
+    out["reference_volume_m3"] = float(want.sum()) * area
     out["program_t_hydro"] = program["t_hydro"]
     out["reference_t_hydro"] = ref_end["t_hydro"]
     out["reference_steps"] = ref_end["steps"]

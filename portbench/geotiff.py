@@ -68,10 +68,8 @@ def write(path, data, cell_size, xll=0.0, yll=0.0, nodata=-9999.0):
         f.write(bytes(head) + bytes(extra))
 
 
-def read(path):
-    """(data, cell_size, nodata) of a single-band float GeoTIFF, data in
-    map orientation."""
-    buf = Path(path).read_bytes()
+def _tags(buf, path):
+    """{tag: values} of the first image directory of the TIFF ``buf``."""
     if buf[:4] != b"II*\0":
         raise ValueError(f"{path}: not a little-endian classic TIFF")
     (ifd,) = struct.unpack("<I", buf[4:8])
@@ -87,6 +85,22 @@ def read(path):
             raw = buf[ptr:ptr + size * n]
         tags[tag] = (raw[:n].rstrip(b"\0").decode() if typ == 2 else
                      struct.unpack("<" + fmt * n, raw[:size * n]))
+    return tags
+
+
+def lower_left(path):
+    """(x, y) of the lower-left corner of a GeoTIFF's grid, from its tie
+    point (the upper-left corner) and its height in cells."""
+    tags = _tags(Path(path).read_bytes(), path)
+    tie, scale = tags[_TIEPOINT], tags[_PIXEL_SCALE]
+    return tie[3], tie[4] - tags[_HEIGHT][0] * scale[1]
+
+
+def read(path):
+    """(data, cell_size, nodata) of a single-band float GeoTIFF, data in
+    map orientation."""
+    buf = Path(path).read_bytes()
+    tags = _tags(buf, path)
     width, height = tags[_WIDTH][0], tags[_HEIGHT][0]
     comp = tags.get(_COMPRESSION, (1,))[0]
     if tags.get(_PREDICTOR, (1,))[0] != 1 or comp not in (1, 8):

@@ -11,6 +11,15 @@ process's start to the first timed segment: the model directory written
 from the seed, loaded and built through the program's own XML path, the
 start checkpoint written, and one untimed segment that loads every
 kernel.
+
+A configuration with a ``layout`` (``{"ranks": n, "mesh_shape": [py,
+px], "sync": "timestep" | "forecast"}``) runs on a mesh of blocks: with
+``ranks`` over 1, this function runs in each of the ranks that
+``ranks.py`` starts, one per card, joined in the program's process group;
+the model directory and the start checkpoint lie in one directory that
+all of them share.  Rank 0 writes the model, decides after each segment
+whether the window goes on and tells the others, takes the segments'
+times, judges the outputs and returns the result; the others return None.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import check, model_dir, spec, trace
 from .reference import model as reference
@@ -66,16 +77,66 @@ class ForbiddenModules(RuntimeError):
         self.names = names
 
 
+def world():
+    """(ranks, this rank) of the process group the run is in, (1, 0)
+    without one."""
+    if not dist.is_initialized():
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+def everyone(value):
+    """``value`` of every rank, in rank order, over the world group."""
+    n, _ = world()
+    if n == 1:
+        return [value]
+    out = [None] * n
+    dist.all_gather_object(out, value)
+    return out
+
+
+def from_rank0(value):
+    """Rank 0's ``value`` on every rank."""
+    if world()[0] == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def barrier():
+    if world()[0] > 1:
+        dist.barrier()
+
+
+def mesh_of(layout, device):
+    """The program's mesh for a configuration's ``layout`` (None without
+    one): its blocks dealt out to the ranks, one card each, or, in one
+    process, all on ``device``."""
+    if not layout:
+        return None
+    from hipims_tpu_torch.parallel import make_mesh
+
+    shape = tuple(int(k) for k in layout["mesh_shape"])
+    n = shape[0] * shape[1]
+    on_cpu = torch.device(device).type == "cpu"
+    return make_mesh(n, shape=shape, devices=[device] * n
+                     if world()[0] == 1 or on_cpu else None)
+
+
 class Segments:
     """The program's simulation of one model directory and its restore
     point."""
 
-    def __init__(self, xml, device, workdir, traffic):
+    def __init__(self, xml, device, workdir, traffic, layout=None):
         from hipims_tpu_torch.io.xml_config import load_config
         from hipims_tpu_torch.runtime import checkpoint
 
         self._ckpt = checkpoint
-        self.sim = load_config(xml).simulation(device=device)
+        self.sim = load_config(xml).simulation(device=device,
+                                               mesh=mesh_of(layout, device))
+        # Every rank reads the output events' chunks; rank 0 writes.
+        self.sim.write_outputs = world()[1] == 0
         self.start = Path(workdir) / "start.npz"
         checkpoint.save_checkpoint(self.start, self.sim)
         self.times = [float(t) for t in traffic["output_times_s"]]
@@ -91,6 +152,8 @@ class Segments:
         r0 = time.perf_counter()
         self._ckpt.load_checkpoint(self.start, sim)
         restored = time.perf_counter() - r0
+        # Under ranks every rank has restored before rank 0's clock starts.
+        barrier()
         spans = []
         gc0 = dict(GC_CLOCK)
         c0 = time.process_time()
@@ -118,10 +181,22 @@ class Segments:
 
     def outputs(self):
         """What the check reads of the program: its clock and its state
-        at the segment's end, as float64 host arrays."""
+        at the segment's end, as float64 host arrays, read through the
+        snapshot that its output events and checkpoints read (under ranks
+        a collective read, whose planes rank 0 keeps; None elsewhere)."""
+        from hipims_tpu_torch.runtime.sharded_io import stream_rows
+
         sim = self.sim
-        planes = [a.double().cpu().numpy() for a in (*sim.state,
-                                                     sim.static.zb)]
+        snap = sim.output_view()
+        keep = world()[1] == 0
+        planes = []
+        for name in ("z", "zmax", "qx", "qy", "zb"):
+            chunks = [np.asarray(c, dtype=np.float64) if keep else None
+                      for _, c in stream_rows(snap.plane(name),
+                                              snap.chunk_rows)]
+            planes.append(np.concatenate(chunks) if keep else None)
+        if not keep:
+            return None
         return {"t": sim.t, "t_hydro": float(sim.carry.t_hydro),
                 "state": planes}
 
@@ -141,14 +216,16 @@ def _gc_clock(phase, info):
 
 def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
              precision=None, sizes=None, limits=None, t_start=None,
-             root=None, reference_cache=None):
+             root=None, reference_cache=None, workdir=None):
     """One run of ``workload``; returns the result dict that ``run.py``
-    prints.  ``device``, ``precision`` (the control's "single"),
-    ``sizes`` (rows, cols and segment_s for a tiny CPU rehearsal) with
-    ``limits`` for that size (the cell's own are read at its own size),
-    and ``reference_cache`` (a dict that keeps the reference's outputs
-    for the next run of the same seed) are for the tests and the readings
-    tool: the command line sets none of them."""
+    prints (None on a rank other than 0).  ``device``, ``precision`` (the
+    control's "single"), ``sizes`` (rows, cols and segment_s for a tiny
+    CPU rehearsal) with ``limits`` for that size (the cell's own are read
+    at its own size), and ``reference_cache`` (a dict that keeps the
+    reference's outputs for the next run of the same seed) are for the
+    tests and the readings tool: the command line sets none of them.
+    ``workdir`` is the directory the ranks share (``ranks.py`` makes it);
+    one process makes its own."""
     t_start = time.perf_counter() if t_start is None else t_start
     root = root or spec.ROOT
     bench = spec.benchmark(root)
@@ -159,17 +236,27 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
     if sizes:
         config.update({k: v for k, v in sizes.items() if k in config})
         traffic.update({k: v for k, v in sizes.items() if k in traffic})
+    layout = config.get("layout")
+    ranks, rank = world()
+    need = int(layout["ranks"]) if layout else 1
+    if int(cell["chips"]) != need or ranks != need:
+        raise ValueError(f"{workload}: {cell['chips']} chip(s) and a run "
+                         f"of {ranks} rank(s) for a layout of {need}")
     on_card = torch.device(device).type == "cuda"
     cells = config["rows"] * config["cols"]
-    workdir = Path(tempfile.mkdtemp(prefix="portbench-",
-                                    dir=os.environ.get("TMPDIR")))
+    own_dir = workdir is None
+    workdir = Path(workdir or tempfile.mkdtemp(
+        prefix="portbench-", dir=os.environ.get("TMPDIR")))
     gc.callbacks.append(_gc_clock)
     try:
-        xml = model_dir.write(workdir / "model", config, traffic, seed,
-                              precision=precision)
+        xml = workdir / "model" / "model.xml"
+        if rank == 0:
+            model_dir.write(workdir / "model", config, traffic, seed,
+                            precision=precision)
+        barrier()
         run_precision = PRECISION[precision
                                   or config["floatingPointPrecision"]]
-        seg = Segments(xml, device, workdir, traffic)
+        seg = Segments(xml, device, workdir, traffic, layout)
         warm = seg.run()
         say(f"warm segment: {warm.wall:.3f} s, {warm.steps} steps "
             f"(+{warm.idle} idle), restore {warm.restore:.3f} s")
@@ -177,6 +264,7 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             torch.cuda.synchronize()
             setup_peak = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+        barrier()
         setup_s = time.perf_counter() - t_start
         if trace_on:
             from torch.profiler import ProfilerActivity, profile
@@ -193,8 +281,10 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             tr = trace.collect(prof)
             del prof
         else:
+            # Rank 0 decides, so that every rank runs the same segments.
             segs = []
-            while not segs or sum(s.wall for s in segs) < seconds:
+            while from_rank0(not segs or sum(s.wall for s in segs)
+                             < seconds):
                 segs.append(seg.run())
         if on_card:
             torch.cuda.synchronize()
@@ -204,6 +294,16 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
         loaded = forbidden_loaded()
         if loaded:
             raise ForbiddenModules(loaded)
+        peaks = everyone((setup_peak, window_peak))
+        busy = everyone(tr.busy_s()) if trace_on else None
+        program = seg.outputs()
+        if ranks > 1:
+            # Every collective of the run is behind: the other ranks are
+            # done, and rank 0 goes on alone.
+            from hipims_tpu_torch.parallel import distributed
+            distributed.shutdown()
+        if rank != 0:
+            return None
         wall = sum(s.wall for s in segs)
         failed = sum(s.steps != warm.steps for s in segs)
         seg_s = float(traffic["segment_s"])
@@ -224,6 +324,9 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             say("output events s: " + ", ".join(f"{e:.4f}" for e in events))
         say(f"cell updates per second: "
             f"{cells * sum(s.steps for s in segs) / wall:.6e}")
+        if ranks > 1:
+            say("peak bytes per card (set-up, window): "
+                + ", ".join(f"{a} {b}" for a, b in peaks))
 
         result = {"correct": False, "attempted": len(segs), "failed": failed,
                   "metrics": {}}
@@ -233,70 +336,79 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             ctx = types.SimpleNamespace(
                 trace=tr, spans=plain.spans, wall=plain.wall, cells=cells,
                 steps=segs[0].steps, idle=segs[0].idle, config=config,
-                traffic=traffic, precision=run_precision)
+                traffic=traffic, precision=run_precision, chips=ranks)
             for m in spec.metrics(bench, workload, "per_layer"):
                 value = spec.reader(m["name"], root)(ctx)
                 if value is not None:
                     result["metrics"][m["name"]] = {"value": value,
                                                     "unit": m["unit"]}
-            busy_s, window_s = tr.busy_s(), tr.window_s
+            # The device's busy seconds averaged over the cards; the
+            # readers and the breakdown read rank 0's.
+            busy_s, window_s = sum(busy) / len(busy), tr.window_s
             breakdown = {"device_ops": trace.device_time_by_name(tr),
                          "idle_gaps": trace.idle_by_host(tr)}
             del tr
         else:
             e2e = {"sim_speed": len(segs) * seg_s / wall,
-                   "peak_mem_GiB": window_peak / 2.0 ** 30,
+                   "peak_mem_GiB": max(w for _, w in peaks) / 2.0 ** 30,
                    "setup_s": setup_s}
             for m in spec.metrics(bench, workload, "end_to_end"):
                 result["metrics"][m["name"]] = {"value": e2e[m["name"]],
                                                 "unit": m["unit"]}
         if on_card:
             name, limit = card_info()
-            say(f"card: {name}, count 1 of {torch.cuda.device_count()} "
-                f"visible, power limit {limit}")
-            result["device"] = {"platform": "gpu", "kind": name, "count": 1,
-                                "memory_peak_bytes": max(setup_peak,
-                                                         window_peak)}
+            say(f"card: {name}, count {ranks} of "
+                f"{torch.cuda.device_count()} visible, power limit {limit}")
+            result["device"] = {"platform": "gpu", "kind": name,
+                                "count": ranks,
+                                "memory_peak_bytes": max(max(p)
+                                                         for p in peaks)}
         else:
             result["device"] = {"platform": "cpu", "kind": "cpu",
-                                "count": 0, "memory_peak_bytes": 0}
+                                "count": ranks, "memory_peak_bytes": 0}
         if trace_on:
             result["device"].update(busy_s=busy_s, window_s=window_s)
             result["breakdown"] = breakdown
 
-        program = seg.outputs()
         del seg, segs, warm
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         r0 = time.perf_counter()
+        model = reference.load(xml)
         if reference_cache is not None and "outputs" in reference_cache:
             ref = reference_cache["outputs"]
         else:
-            ref = reference_outputs(xml, traffic, device)
+            ref = reference_outputs(model, traffic, device)
             if reference_cache is not None:
                 reference_cache["outputs"] = ref
+        ref_s = time.perf_counter() - r0
         out_dir = xml.parent / "output"
         numbers = check.readings(
             program, ref,
             lambda kind, t: check.raster(out_dir / f"{kind}_{t:g}.tif"),
-            traffic, config["cell_size_m"])
+            traffic, config["cell_size_m"],
+            lambda state, t, t_hydro: reference.settle(model, state, t,
+                                                       t_hydro))
         correct, compared = check.judge(numbers, limits)
-        say(f"reference: {time.perf_counter() - r0:.3f} s, "
-            f"{numbers['reference_steps']} steps")
+        say(f"reference: {ref_s:.3f} s, {numbers['reference_steps']} steps"
+            + (f", peak {torch.cuda.max_memory_allocated(device)} B on "
+               f"{device}" if on_card else ""))
         say("readings: " + json.dumps(numbers))
         result["correct"] = correct
         result["compared"] = compared
         return result
     finally:
         gc.callbacks.remove(_gc_clock)
-        shutil.rmtree(workdir, ignore_errors=True)
+        if own_dir:
+            shutil.rmtree(workdir, ignore_errors=True)
 
 
-def reference_outputs(xml, traffic, device):
-    """The float64 reference's outputs at each of the traffic's sync
-    times (its output times and the segment's end), keyed by time."""
-    model = reference.load(xml)
+def reference_outputs(model, traffic, device):
+    """The float64 reference's outputs for ``model`` (``reference.load``
+    of the cell's XML) at each of the traffic's sync times (its output
+    times and the segment's end), keyed by time."""
     times = sorted({float(t) for t in traffic["output_times_s"]}
                    | {float(traffic["segment_s"])})
     return dict(zip(times, reference.run(model, times, device)))

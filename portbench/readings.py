@@ -64,6 +64,7 @@ def planted_readings(workload, seed, fault, reference, device, sizes=None):
     planted, in the program's place, against ``reference`` (the sound
     reference's outputs of the same seed)."""
     from portbench import check, harness, model_dir, spec
+    from portbench.reference import model as reference
 
     bench = spec.benchmark()
     cell = spec.cell(bench, workload)
@@ -75,7 +76,8 @@ def planted_readings(workload, seed, fault, reference, device, sizes=None):
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
         xml = model_dir.write(Path(tmp) / "model", config, traffic, seed)
         with planted(fault):
-            outs = harness.reference_outputs(xml, traffic, device)
+            outs = harness.reference_outputs(reference.load(xml), traffic,
+                                             device)
     end = outs[float(traffic["segment_s"])]
     return check.readings(
         end, reference, lambda kind, t: check.field(kind, outs[t]["state"]),

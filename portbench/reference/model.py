@@ -1,11 +1,13 @@
 """The plain reference run of a model directory, in float64.
 
-It reads the same XML, GeoTIFFs and CSVs the program reads and works out
-again what the program derives from them: the bed with its closed-edge
-walls (raised to 9999.9 on a ring as wide as the scheme's stencil, after
-the initial water is laid on the pristine bed), the initial state, the
-forcing mask (the grid minus that ring), the rain and loss series with
-their record interval and length, and the time controller's settings.
+It reads the same XML, GeoTIFFs, CSVs and ASC grids the program reads and
+works out again what the program derives from them: the bed with its
+closed-edge walls (raised to 9999.9 on a ring as wide as the scheme's
+stencil, after the initial water is laid on the pristine bed), the initial
+state, the forcing mask (the grid minus that ring), the rain and loss
+series with their record interval and length, the gridded rain's frames
+(named by their strftime mask at the real-world start plus each record's
+time) and each cell's coarse cell, and the time controller's settings.
 It never shifts the vertical datum: that is a single-precision device.
 Then it steps the segment with ``swe.py``, as the program's host loop
 does: the boundaries, the scheme step, the CFL reduction and ``advance``
@@ -16,6 +18,8 @@ Nothing here imports the program under test.
 
 from __future__ import annotations
 
+import datetime
+import math
 import xml.etree.ElementTree as ET
 from pathlib import Path
 from typing import NamedTuple
@@ -23,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import geotiff
+from .. import asc, geotiff
 from . import swe
 
 RADIUS = {"godunov": 1, "muscl-hancock": 2}
@@ -35,6 +39,17 @@ class Forcing(NamedTuple):
     interval: float
     length: float
     is_loss: bool
+
+
+class Gridded(NamedTuple):
+    """Gridded rain: ``frames`` (T, grid rows, grid cols) in mm/h, row 0
+    south, one every ``interval`` s from 0; ``rows`` and ``cols`` the
+    coarse row of each of the domain's rows and the coarse column of each
+    of its columns."""
+    frames: torch.Tensor
+    interval: float
+    rows: torch.Tensor
+    cols: torch.Tensor
 
 
 class Model(NamedTuple):
@@ -66,18 +81,66 @@ def _series(path):
     return np.asarray(rows)
 
 
+def _coarse(n, d, offset, res, grid):
+    """The coarse index of each of ``n`` cells of size ``d`` along one
+    axis: floor((x - offset) / res) at each cell's lower (left or south)
+    edge x, its distance from the domain's corner, clipped to the
+    ``grid`` coarse cells (ops/boundaries.py GriddedBoundary's
+    documented mapping)."""
+    x = np.arange(n) * float(d)
+    return torch.as_tensor(np.clip(np.floor((x - offset) / res), 0,
+                                   grid - 1).astype(np.int64))
+
+
+def _gridded(ts, bc_dir, duration, real_start, shape, dx, corner):
+    """The frames of a gridded element: one every ``interval`` s from 0
+    while the time is within the run and its file exists."""
+    if ts.get("value", "").strip().lower() != "rain-intensity":
+        raise ValueError("the reference knows gridded rain only, not "
+                         f"{ts.get('value')!r}")
+    interval = float(ts.get("interval"))
+    mask = ts.get("mask") or ts.get("source")
+    frames, first, k = [], None, 0
+    while k * interval <= duration:
+        name = (real_start + datetime.timedelta(seconds=k * interval)
+                ).strftime(mask)
+        if not (bc_dir / name).exists():
+            break
+        data, res, xll, yll = asc.read(bc_dir / name)
+        first = first or (res, xll, yll)
+        frames.append(data[::-1])
+        k += 1
+    if not frames:
+        raise ValueError(f"no gridded frame found for {mask!r}")
+    res, xll, yll = first
+    grid = np.stack(frames)
+    return Gridded(frames=torch.as_tensor(grid, dtype=torch.float64),
+                   interval=interval,
+                   rows=_coarse(shape[0], dx, yll - corner[1], res,
+                                grid.shape[1]),
+                   cols=_coarse(shape[1], dx, xll - corner[0], res,
+                                grid.shape[2]))
+
+
 def load(xml_path) -> Model:
     """The model of ``xml_path``: one cartesian domain, raster DEM and
-    optional raster depth, constant Manning n, uniform rain and loss."""
+    optional raster depth, constant Manning n, uniform rain and loss, and
+    gridded rain."""
     xml_path = Path(xml_path)
     base = xml_path.parent
     root = ET.parse(xml_path).getroot()
     sim = root.find("simulation")
     sp = _params(sim)
+    real_start = datetime.datetime(1970, 1, 1)
+    for p in sim.findall("parameter"):
+        if p.get("name", "").strip().lower() == "realstart":
+            real_start = datetime.datetime.strptime(
+                p.get("value").strip(),
+                p.get("format", "%Y-%m-%d %H:%M:%S"))
     dom = sim.find("domainSet").find("domain")
     data = dom.find("data")
     src_dir = base / data.get("sourceDir", "")
-    rasters, manning = {}, 0.0
+    rasters, manning, corner = {}, 0.0, (0.0, 0.0)
     for ds in data.findall("dataSource"):
         values = [v.strip().lower() for v in ds.get("value").split(",")]
         if ds.get("type") == "constant":
@@ -86,6 +149,8 @@ def load(xml_path) -> Model:
             arr, cell, _ = geotiff.read(src_dir / ds.get("source"))
             for v in values:
                 rasters[v] = (arr[::-1].copy(), cell)
+            if "dem" in values:
+                corner = geotiff.lower_left(src_dir / ds.get("source"))
     zb0, dx = rasters["dem"]
     scheme_el = dom.find("scheme")
     scheme = scheme_el.get("name").strip().lower()
@@ -106,6 +171,10 @@ def load(xml_path) -> Model:
     forcings = []
     bc_dir = base / bc.get("sourceDir", "")
     for ts in bc.findall("timeseries"):
+        if ts.get("type", "").strip().lower() == "gridded":
+            forcings.append(_gridded(ts, bc_dir, float(sp["duration"]),
+                                     real_start, zb.shape, dx, corner))
+            continue
         s = _series(bc_dir / ts.get("source"))
         forcings.append(Forcing(
             values=torch.as_tensor(s[:, 1], dtype=torch.float64),
@@ -122,6 +191,41 @@ def load(xml_path) -> Model:
         zb=zb, z0=z0, manning=manning, forcings=forcings)
 
 
+def _force_mask(shape, ring, device):
+    """True where forcing is allowed: the grid minus its ``ring``."""
+    rows, cols = shape
+    yy = torch.arange(rows, device=device)[:, None]
+    xx = torch.arange(cols, device=device)[None, :]
+    return ((yy >= ring) & (yy < rows - ring)
+            & (xx >= ring) & (xx < cols - ring))
+
+
+def settle(model: Model, state, t, t_hydro):
+    """The free surface ``z`` of ``state`` (z, zmax, qx, qy, zb host
+    float64 arrays) with the forcing that a run stopped at time ``t``
+    still owes added: what each boundary adds over the ``t_hydro``
+    seconds not yet forced, on the cells it forces, at the record in
+    force in the middle of those seconds (the run's next step would take
+    the record of its own time, which at a sync on a record's edge is the
+    next one).  Two runs that force the same, but on steps of their own,
+    owe different tails at a sync; settled, they compare alike."""
+    z, zmax, _, _, zb = (torch.as_tensor(a) for a in state)
+    mask = _force_mask(z.shape, RADIUS[model.scheme], "cpu")
+    seconds = torch.tensor(float(t_hydro))
+    t = torch.tensor(float(t) - 0.5 * float(t_hydro))
+    for f in model.forcings:
+        if isinstance(f, Gridded):
+            delta = swe.gridded_delta(f.frames, f.rows, f.cols, f.interval,
+                                      t, seconds)
+            on = (zmax > swe.NODATA) & (z != swe.NODATA) & mask
+        else:
+            delta = swe.uniform_delta(z, zb, f.values, f.interval,
+                                      f.is_loss, t, seconds)
+            on = (zmax > swe.NODATA) & mask & (t < f.length)
+        z = z + torch.where(on, delta, 0.0)
+    return z.numpy()
+
+
 def run(model: Model, targets, device, check_every=64):
     """Step ``model`` from its initial state through each sync time in
     ``targets``, yielding at each a dict of its clock ``t``, its
@@ -132,13 +236,16 @@ def run(model: Model, targets, device, check_every=64):
     z = torch.as_tensor(model.z0, **f64)
     state = (z, z.clone(), torch.zeros_like(z), torch.zeros_like(z))
     n = torch.full_like(z, model.manning)
-    ring = RADIUS[model.scheme]
-    rows, cols = z.shape
-    yy = torch.arange(rows, device=device)[:, None]
-    xx = torch.arange(cols, device=device)[None, :]
-    mask = ((yy >= ring) & (yy < rows - ring)
-            & (xx >= ring) & (xx < cols - ring))
+    mask = _force_mask(z.shape, RADIUS[model.scheme], device)
+    last = min((len(f.frames) * f.interval for f in model.forcings
+                if isinstance(f, Gridded)), default=math.inf)
+    if max(targets, default=0.0) >= last:
+        raise ValueError(f"the gridded rain's frames end at {last} s, "
+                         f"before the last sync time {max(targets)} s")
     forcings = [f._replace(values=f.values.to(device))
+                if isinstance(f, Forcing) else
+                f._replace(frames=f.frames.to(device),
+                           rows=f.rows.to(device), cols=f.cols.to(device))
                 for f in model.forcings]
     step = (swe.godunov_step if model.scheme == "godunov"
             else swe.muscl_step)
@@ -155,9 +262,15 @@ def run(model: Model, targets, device, check_every=64):
             for _ in range(check_every):
                 z, zmax, qx, qy = state
                 for f in forcings:
-                    z = swe.uniform_forcing(z, zmax, zb, mask, f.values,
-                                            f.interval, f.length, f.is_loss,
-                                            carry.t, carry.dt, carry.t_hydro)
+                    if isinstance(f, Gridded):
+                        z = swe.gridded_forcing(
+                            z, zmax, zb, mask, f.frames, f.rows, f.cols,
+                            f.interval, carry.t, carry.dt, carry.t_hydro)
+                    else:
+                        z = swe.uniform_forcing(
+                            z, zmax, zb, mask, f.values, f.interval,
+                            f.length, f.is_loss, carry.t, carry.dt,
+                            carry.t_hydro)
                 state = step(z, zmax, qx, qy, zb, n, carry.dt, model.dx,
                              model.dx, model.vs, model.friction)
                 speed = swe.max_wave_speed(*state, zb, quite_small)

@@ -11,7 +11,10 @@ agree to round-off (tests/test_portbench_reference.py).  The time
 controller (src/Schemes/CLDynamicTimestep.clc tst_Advance_Normal), the
 CFL reduction (tst_Reduce) and the uniform rain and loss
 (src/Boundaries/CLBoundaries.clc bdy_Uniform) are transcribed here from
-the same semantics.
+the same semantics, and the gridded rain (bdy_Gridded) from the same
+source and the program's documented mapping of a cell onto the coarse
+grid; the time controller's hydrological interval drops no forcing
+(``advance``).
 
 Nothing here imports the program under test.  Planes are (rows, cols),
 row 0 south.
@@ -427,12 +430,21 @@ def advance(c: Carry, speed, sync, end, dx, courant) -> Carry:
     """Move the clock by the step just taken and set the next dt
     (tst_Advance_Normal): CFL limit, start-up floor, global minimum, the
     suspension at the sync time, the early cap, the end time, the global
-    maximum, in that order."""
+    maximum, in that order.  The hydrological interval ``t_hydro`` is the
+    time since the boundaries last forced, so the forcing applied over a
+    run adds up to the simulated time (the reference code resets it on
+    an idle step, and at ``>`` where the boundaries force at ``>=``: both
+    drop forcing, which this reference does not copy)."""
     dt_eff = torch.clamp(c.dt, min=0.0)
     t = c.t + dt_eff
     stepped = dt_eff > 0.0
-    t_hydro = torch.where(c.t_hydro > TIMESTEP_HYDROLOGICAL, dt_eff,
-                          c.t_hydro + dt_eff)
+    # The seconds not yet forced: reset to the step just taken where the
+    # boundaries forced (at >= TIMESTEP_HYDROLOGICAL, their own gate, on
+    # a step that moved), kept whole on an idle step, so no forcing is
+    # dropped at a suspension.
+    t_hydro = torch.where(
+        stepped, torch.where(c.t_hydro >= TIMESTEP_HYDROLOGICAL, dt_eff,
+                             c.t_hydro + dt_eff), c.t_hydro)
     min_time = dx / speed
     min_time = torch.where((t < TIMESTEP_START_MINIMUM_DURATION)
                            & (min_time < TIMESTEP_START_MINIMUM),
@@ -451,17 +463,47 @@ def advance(c: Carry, speed, sync, end, dx, courant) -> Carry:
                  c.idle + (~stepped).long())
 
 
+def uniform_delta(z, zb, values, interval, is_loss, t, seconds):
+    """What domain-wide rain or loss adds to ``z`` over ``seconds``: the
+    rate (mm/h) of the record t / interval (truncated); a loss stops at
+    the bed."""
+    idx = torch.clamp((t / interval).long(), 0, values.shape[0] - 1)
+    rate = values[idx] / 3_600_000.0 * seconds
+    if is_loss:
+        return torch.maximum(zb - z, -rate)
+    return rate.expand_as(z)
+
+
 def uniform_forcing(z, zmax, zb, mask, values, interval, length, is_loss,
                     t, dt, t_hydro):
-    """Domain-wide rain or loss (bdy_Uniform): the rate of the record
-    t / interval (truncated), over the hydrological interval, once that
-    interval reaches TIMESTEP_HYDROLOGICAL, on enabled cells inside
-    ``mask``; a loss stops at the bed."""
-    idx = torch.clamp((t / interval).long(), 0, values.shape[0] - 1)
-    rate = values[idx] / 3_600_000.0 * t_hydro
+    """Domain-wide rain or loss (bdy_Uniform): ``uniform_delta`` over the
+    hydrological interval, once that interval reaches
+    TIMESTEP_HYDROLOGICAL, on a step that moves, before the series'
+    ``length``, on enabled cells inside ``mask``."""
+    delta = uniform_delta(z, zb, values, interval, is_loss, t, t_hydro)
     live = (t_hydro >= TIMESTEP_HYDROLOGICAL) & (dt > 0.0) & (t < length)
-    if is_loss:
-        delta = torch.maximum(zb - z, -rate)
-    else:
-        delta = rate.expand_as(z)
     return z + torch.where(live & (zmax > NODATA) & mask, delta, 0.0)
+
+
+def gridded_delta(frames, rows, cols, interval, t, seconds):
+    """What gridded (radar) rain adds over ``seconds``: the frame (mm/h)
+    of the record t / interval (truncated), each cell under the coarse
+    cell that ``rows`` and ``cols`` map its row and column to.
+    ``frames`` is (T, grid rows, grid cols), row 0 south; the caller
+    makes sure that no time asked for lies past the last frame."""
+    ti = (t / interval).long().view(1)
+    frame = frames.index_select(0, ti)[0]
+    return frame.index_select(0, rows).index_select(1, cols) \
+        / 3_600_000.0 * seconds
+
+
+def gridded_forcing(z, zmax, zb, mask, frames, rows, cols, interval, t, dt,
+                    t_hydro):
+    """Gridded (radar) rain (bdy_Gridded): ``gridded_delta`` over the
+    hydrological interval, once that interval reaches
+    TIMESTEP_HYDROLOGICAL, on a step that moves, on enabled cells inside
+    ``mask``."""
+    rate = gridded_delta(frames, rows, cols, interval, t, t_hydro)
+    live = (t_hydro >= TIMESTEP_HYDROLOGICAL) & (dt > 0.0)
+    forced = live & (zmax > NODATA) & (z != NODATA) & mask
+    return z + torch.where(forced, rate, 0.0)

@@ -9,8 +9,10 @@ from the root of a checkout on a machine with an NVIDIA card.  With
 cell's end-to-end metrics; with ``--trace 1`` one segment is profiled and
 the line carries the per-layer metrics, the device's busy and window
 seconds and a breakdown.  The numbers compared with the reference are
-the last lines of standard error and the last key of the result.  Without
-a CUDA card the run fails and prints no result.  Build and kernel caches
+the last lines of standard error and the last key of the result.  A cell
+on several chips runs one rank per card (``ranks.py``), and rank 0's
+result is printed.  Without as many CUDA cards as the cell asks for, the
+run fails and prints no result.  Build and kernel caches
 stay inside the checkout (``.portbench_cache/``); model files go under
 ``$TMPDIR`` and are deleted at exit.
 """
@@ -52,6 +54,11 @@ def main(argv=None):
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               " visible", file=sys.stderr)
         return 2
+    if need > 1:
+        from portbench import ranks
+        return ranks.launch({"workload": args.workload, "seed": args.seed,
+                             "seconds": args.seconds, "trace": args.trace,
+                             "t_start": T_START}, need)
     try:
         result = harness.run_cell(args.workload, args.seed, args.seconds,
                                   bool(args.trace), device="cuda:0",

@@ -7,8 +7,9 @@ out of the step, and an answer altered where it is produced (the state
 the steps return, or the raster the output layer derives); and for the
 faults that keep the water's mass, which its volume cannot see: the
 first-order step in MUSCL-Hancock's place, and van Leer's limiter in
-minmod's place.  No cell runs across chips, so none has an exchange to
-leave out.  The control (the program in plain float32) is run at the
+minmod's place.  No committed cell runs across chips, so none has an
+exchange to leave out (``test_portbench_ranks.py`` leaves it out of a
+dummy four-rank cell).  The control (the program in plain float32) is run at the
 cells' own size on the card (``test_control_fails_on_the_card``, marked
 ``cuda``).
 
@@ -80,8 +81,10 @@ def _altered_field(*args, **kwargs):
 real_derive = output.derive_field
 
 
-def _first_order(state, static, dt, params, variant=None, comp=None):
-    return stencil_step("godunov", state, static, dt, params, comp=comp)
+def _first_order(state, static, dt, params, variant=None, comp=None,
+                 partials=False):
+    return stencil_step("godunov", state, static, dt, params, comp=comp,
+                        partials=partials)
 
 
 def _van_leer(left, center, right):

@@ -78,6 +78,40 @@ def test_advance_lands_on_sync_and_suspends():
     assert float(c.t) == 10.0 and (int(c.steps), int(c.idle)) == (2, 1)
 
 
+def _reference_codes_advance(c, speed, sync, end, dx, courant,
+                             advance=swe.advance):
+    """The time controller as the reference kept its hydrological
+    interval before it stopped dropping forcing: reset on an idle step,
+    and at ``>``."""
+    new = advance(c, speed, sync, end, dx, courant)
+    dt_eff = torch.clamp(c.dt, min=0.0)
+    return new._replace(t_hydro=torch.where(
+        c.t_hydro > swe.TIMESTEP_HYDROLOGICAL, dt_eff, c.t_hydro + dt_eff))
+
+
+def test_dam_break_reference_is_unchanged(tmp_path, monkeypatch):
+    """The dam break has no forcing, so the rule for the hydrological
+    interval moves none of its reference's outputs: its states and steps
+    at each sync equal those under the rule it replaced, to 1e-12."""
+    from portbench import model_dir, spec
+    from portbench.reference import model as reference
+
+    bench = spec.benchmark()
+    config = spec.config(bench, "malpasset-10m")
+    traffic = spec.traffic("dambreak")
+    config.update(rows=24, cols=40)
+    xml = model_dir.write(tmp_path, config, traffic, 7)
+    model = reference.load(xml)
+    now = list(reference.run(model, [20.0, 45.0], "cpu", check_every=16))
+    monkeypatch.setattr(swe, "advance", _reference_codes_advance)
+    before = list(reference.run(model, [20.0, 45.0], "cpu",
+                                check_every=16))
+    for a, b in zip(now, before):
+        assert (a["t"], a["steps"]) == (b["t"], b["steps"])
+        for x, y in zip(a["state"], b["state"]):
+            np.testing.assert_allclose(x, y, rtol=1e-12, atol=1e-12)
+
+
 def test_reference_imports_nothing_of_the_program():
     for path in REFERENCE.glob("*.py"):
         tree = ast.parse(path.read_text())
