@@ -5,7 +5,9 @@ Formats:
   * GeoTIFF (.tif/.tiff)          — read (classic + BigTIFF;
                                     uncompressed/deflate strips or tiles)
                                     + write (deflate-compressed float32
-                                    strips, streaming-capable, auto-BigTIFF
+                                    strips, deflated on a pool of host
+                                    threads and written in order,
+                                    streaming-capable, auto-BigTIFF
                                     past 4 GB, GeoTIFF georeferencing
                                     + GDAL nodata tag)
 
@@ -22,8 +24,12 @@ reference's CRasterDataset GDAL wrapper
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
+import threading
 import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -277,12 +283,88 @@ def _read_tiff(path: Path) -> Raster:
                   nodata=nodata)
 
 
+# ------------------------------------------------------ deflate pool ----
+#
+# A GeoTIFF's strips are independent deflate streams and zlib releases the
+# GIL, so TiffStripWriter compresses them on one process-wide pool of host
+# threads and writes them in strip order: the bytes of compressing them
+# one after another.
+
+_lock = threading.Lock()
+_pool = None        # the deflate pool, made at first use
+_pool_size = 0
+_counts = {"pool": 0, "in_flight": 0, "most_in_flight": 0}
+_CGROUP = "/proc/self/cgroup"
+_CGROUP_ROOT = "/sys/fs/cgroup"
+
+
+def _deflate(raw):
+    return zlib.compress(raw, 6)
+
+
+def _usable_cores() -> int:
+    """The cores this process may run on: its affinity mask, capped by the
+    tightest cgroup v2 ``cpu.max`` quota of its cgroup and the cgroup's
+    ancestors, where those files can be read (cgroup v1 quotas are not
+    read)."""
+    cores = len(os.sched_getaffinity(0))
+    try:
+        with open(_CGROUP) as f:
+            group = next((line.strip()[3:] for line in f
+                          if line.startswith("0::")), None)
+    except OSError:
+        group = None
+    if group is None:
+        return cores
+    parts = [p for p in group.split("/") if p]
+    for depth in range(len(parts), -1, -1):
+        try:
+            with open("/".join([_CGROUP_ROOT, *parts[:depth], "cpu.max"])) as f:
+                quota, period = f.read().split()
+            if quota != "max":
+                cores = min(cores, max(1, -(-int(quota) // int(period))))
+        except (OSError, ValueError):
+            pass
+    return cores
+
+
+def _deflate_pool():
+    """(the process's deflate pool, its size): one worker per usable
+    core."""
+    global _pool, _pool_size
+    with _lock:
+        if _pool is None:
+            _pool_size = max(1, _usable_cores())
+            _pool = ThreadPoolExecutor(_pool_size,
+                                       thread_name_prefix="tiff-deflate")
+        return _pool, _pool_size
+
+
+def _count(**delta):
+    with _lock:
+        for key, n in delta.items():
+            _counts[key] += n
+        _counts["most_in_flight"] = max(_counts["most_in_flight"],
+                                        _counts["in_flight"])
+
+
+def deflate_counts() -> dict:
+    """This process's GeoTIFF strips deflated on the pool (``pool``), the
+    strips handed to the pool and not yet written (``in_flight``), and the
+    most of them at once (``most_in_flight``)."""
+    with _lock:
+        return dict(_counts)
+
+
 class TiffStripWriter:
     """Incremental single-band GeoTIFF writer: rows stream in (top-down,
-    map orientation), strips are deflate-compressed and written as they
-    complete, and the IFD is appended at close — so peak memory is one
-    strip, never the full grid (the sharded-output path feeds this with
-    bounded row chunks; see runtime/sharded_io.py).
+    map orientation), each completed strip is deflated on the process's
+    pool of host threads, the strips are written in order as they are
+    done, and the IFD is appended at close.  A writer holds at most twice
+    the pool's size of strips in flight, so peak memory is that many
+    strips, raw and compressed, never the full grid (the sharded-output
+    path feeds this with bounded row chunks; see runtime/sharded_io.py).
+    A writer that raises is closed, its strips in flight waited out.
 
     Replaces the GDAL-backed writes of the reference
     (src/Datasets/CRasterDataset.cpp:101-290) including their deflate
@@ -300,6 +382,9 @@ class TiffStripWriter:
             # ~2 MB of uncompressed f32 per strip.
             rows_per_strip = max(1, (2 << 20) // max(self.width * 4, 1))
         self.rows_per_strip = min(rows_per_strip, self.height)
+        self._pool, size = _deflate_pool()
+        self.max_in_flight = 2 * size
+        self._in_flight = deque()
         payload = self.width * self.height * 4
         if bigtiff is None:
             bigtiff = payload > (1 << 32) - (1 << 24)
@@ -319,42 +404,92 @@ class TiffStripWriter:
         """Append rows (map orientation: first call holds the NORTHERNMOST
         rows)."""
         with span("hipims.output.encode"):
-            block = np.ascontiguousarray(np.asarray(block, np.float32))
-            if block.ndim == 1:
-                block = block[None, :]
-            # Real exceptions, not asserts: a short/wide-fed writer must fail
-            # loudly (python -O would strip asserts and emit a corrupt file).
-            if block.shape[1] != self.width:
-                raise ValueError(f"row width {block.shape[1]} != declared "
-                                 f"{self.width}")
-            self._rows_in += block.shape[0]
-            if self._rows_in > self.height:
-                raise ValueError(f"received {self._rows_in} rows for a "
-                                 f"{self.height}-row raster")
-            self._pending = (block if not self._pending.size
-                             else np.concatenate([self._pending, block]))
-            rps = self.rows_per_strip
-            while (self._pending.shape[0] >= rps
-                   or (self._rows_in == self.height and self._pending.size)):
-                strip, self._pending = self._pending[:rps], self._pending[rps:]
-                raw = strip.tobytes()
-                if self.compress == "deflate":
-                    raw = zlib.compress(raw, 6)
-                self._offsets.append(self._pos)
-                self._counts.append(len(raw))
-                self._f.write(raw)
-                self._pos += len(raw)
-                if self._pos % 2:
-                    # TIFF 6.0: all offsets must be word-aligned; compressed
-                    # strip lengths are arbitrary, so pad (byte counts keep
-                    # the true strip length).
-                    self._f.write(b"\0")
-                    self._pos += 1
+            try:
+                self._write_rows(block)
+            except BaseException:
+                self._abort()
+                raise
+
+    def _write_rows(self, block):
+        block = np.ascontiguousarray(np.asarray(block, np.float32))
+        if block.ndim == 1:
+            block = block[None, :]
+        # Real exceptions, not asserts: a short/wide-fed writer must fail
+        # loudly (python -O would strip asserts and emit a corrupt file).
+        if block.shape[1] != self.width:
+            raise ValueError(f"row width {block.shape[1]} != declared "
+                             f"{self.width}")
+        self._rows_in += block.shape[0]
+        if self._rows_in > self.height:
+            raise ValueError(f"received {self._rows_in} rows for a "
+                             f"{self.height}-row raster")
+        self._pending = (block if not self._pending.size
+                         else np.concatenate([self._pending, block]))
+        rps = self.rows_per_strip
+        while (self._pending.shape[0] >= rps
+               or (self._rows_in == self.height and self._pending.size)):
+            strip, self._pending = self._pending[:rps], self._pending[rps:]
+            # A copy: the caller may reuse its block once this returns.
+            self._put(strip.tobytes())
+        self._write_done(wait=False)
+
+    def _put(self, raw):
+        if self.compress != "deflate":
+            self._write_strip(raw)
+            return
+        if len(self._in_flight) >= self.max_in_flight:
+            self._write_strip(self._take())
+        self._in_flight.append(self._pool.submit(_deflate, raw))
+        _count(pool=1, in_flight=1)
+
+    def _take(self):
+        """The oldest strip in flight's compressed bytes, waited for."""
+        future = self._in_flight.popleft()
+        _count(in_flight=-1)
+        return future.result()
+
+    def _write_done(self, wait):
+        """Write the strips in flight that are done (all, with ``wait``)
+        up to the first that is not."""
+        while self._in_flight and (wait or self._in_flight[0].done()):
+            self._write_strip(self._take())
+
+    def _write_strip(self, raw):
+        self._offsets.append(self._pos)
+        self._counts.append(len(raw))
+        self._f.write(raw)
+        self._pos += len(raw)
+        if self._pos % 2:
+            # TIFF 6.0: all offsets must be word-aligned; compressed
+            # strip lengths are arbitrary, so pad (byte counts keep
+            # the true strip length).
+            self._f.write(b"\0")
+            self._pos += 1
+
+    def _abort(self):
+        """Wait out the strips in flight, unwritten, and close the file."""
+        while self._in_flight:
+            future = self._in_flight.popleft()
+            _count(in_flight=-1)
+            if not future.cancel():
+                future.exception()
+        self._f.close()
 
     def close(self):
+        """Wait for every strip, write them and the IFD, and close the
+        file."""
+        with span("hipims.output.encode"):
+            try:
+                self._close()
+            except BaseException:
+                self._abort()
+                raise
+
+    def _close(self):
         if self._rows_in != self.height:
             raise ValueError(f"wrote {self._rows_in} of {self.height} "
                              "rows; refusing to emit a truncated TIFF")
+        self._write_done(wait=True)
         e = "<"
         big = self.big
         off_t, off_fmt = (16, "Q") if big else (4, "I")
@@ -423,7 +558,7 @@ class TiffStripWriter:
         if exc[0] is None:
             self.close()
         else:
-            self._f.close()
+            self._abort()
 
 
 def _write_tiff(path: Path, raster: Raster):

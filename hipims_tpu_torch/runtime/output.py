@@ -184,6 +184,13 @@ class _AssembleRows:
                                 cell_size=self.cell_size, nodata=NODATA),
                          fmt=self.fmt)
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.close()
+
 
 class RasterOutputWriter:
     """Writes the configured <dataTarget> rasters at each output time.
@@ -217,20 +224,22 @@ class RasterOutputWriter:
         raise ValueError(f"unsupported raster output format '{fmt}'")
 
     def __call__(self, sim, t: float):
+        from contextlib import ExitStack
         from pathlib import Path
         view = sim.output_view()
         d = view.domain
-        sinks = [self._open_strip_writer(
-                     Path(self.target_dir)
-                     / tgt["target"].replace("%t", time_label(t)),
-                     tgt.get("format", "tif").lower(), d.rows, d.cols)
-                 for tgt in self.targets] if view.write_files else []
-        # One pass over the chunks feeds every target.
-        for _r0, st, sc in view.stream_chunks(reverse=True):
-            for tgt, sink in zip(self.targets, sinks):
-                with span("hipims.output.derive"):
-                    field = derive_field(tgt["value"], st, sc, d.dx,
-                                         datum=d.datum)
-                sink.write_rows(field[::-1])
-        for sink in sinks:
-            sink.close()
+        # Each sink is a context: on an exception every sink already open
+        # is closed (a TIFF's strips in flight waited out) before it rises.
+        with ExitStack() as stack:
+            sinks = [stack.enter_context(self._open_strip_writer(
+                         Path(self.target_dir)
+                         / tgt["target"].replace("%t", time_label(t)),
+                         tgt.get("format", "tif").lower(), d.rows, d.cols))
+                     for tgt in self.targets] if view.write_files else []
+            # One pass over the chunks feeds every target.
+            for _r0, st, sc in view.stream_chunks(reverse=True):
+                for tgt, sink in zip(self.targets, sinks):
+                    with span("hipims.output.derive"):
+                        field = derive_field(tgt["value"], st, sc, d.dx,
+                                             datum=d.datum)
+                    sink.write_rows(field[::-1])

@@ -35,8 +35,10 @@ Every name starts with ``hipims.``; the spans and what they cover:
 - ``hipims.output.event``: one output event; inside it
   ``hipims.output.snapshot`` (the snapshot and each chunk's or gauge
   sample's host copy), ``hipims.output.derive`` (each derived field),
-  ``hipims.output.encode`` (each strip encode-and-write on the calling
-  thread) and ``hipims.output.checkpoint``;
+  ``hipims.output.encode`` (a raster writer's work on the calling thread:
+  encoding rows, handing GeoTIFF strips to the deflate pool, every wait on
+  the pool, at its in-flight cap and in ``close``'s drain, and the writes;
+  the pool's threads record no span) and ``hipims.output.checkpoint``;
 - ``hipims.mesh.halo`` (the halo strips' exchange) and ``hipims.mesh.max``
   (the cross-block and cross-rank maxima and NaN probe sums);
 - ``hipims.kernels.build`` (an nvcc run) and ``hipims.kernels.load``
