@@ -16,12 +16,12 @@ a process group (below):
      first and then columns full-height, so the corners arrive in two
      hops; every neighbour's values are taken before any block steps;
   3. the window runs ``window`` steps (1 under ``sync_method="timestep"``):
-     each step applies the boundaries on the extended block (``mask`` =
-     off the logical ring in global coordinates) and runs the scheme's
-     fused step with the block's ``origin``, the logical grid and its
-     owned-cell ``speed_window`` (on the card K1, K4, or K2/K5a-P + K3/K5a-C;
-     on the CPU their plain versions).  Each step invalidates one more
-     halo ring, so the owned cells stay exact;
+     each step is the simulation's own (``Simulation._step``, handed in
+     as ``step``): the boundaries on the extended block (``mask`` = off
+     the logical ring in global coordinates), then the scheme's fused
+     step with the block's ``origin``, the logical grid and its owned-cell
+     ``speed_window``.  Each step invalidates one more halo ring, so the
+     owned cells stay exact;
   4. the time controller runs as in the reference, in one of two modes:
      lock-step (one global max over the blocks' owned-cell speeds per step:
      the analogue of MPI_Allreduce(MIN), src/MPI/CMPIManager.cpp:837-889),
@@ -43,9 +43,10 @@ of each window and every one outside it is a zero of the frame.  What
 differs from the JAX package by design: the pads are ``window * radius +
 1`` with no rounding (its Pallas branch rounds them to 64 for the TPU's
 DMA alignment, which the CUDA kernels do not have), blocks may differ by a
-row or a column (``mesh.block_spans``), and where not even a window of one
-step fits a block, ``Simulation`` raises where the JAX package falls back
-to per-step GSPMD halos (ROADMAP.md section 3).
+row or a column (``mesh.block_spans``), and the blocks shrink the window
+asked for until its pads fit the smallest block; where not even a window
+of one step fits, they raise where the JAX package falls back to per-step
+GSPMD halos (ROADMAP.md section 3).
 
 Host reads: in one process lock-step reads nothing; window mode reads one
 0-d tensor per window, the ``violated`` predicate (and one more per
@@ -98,9 +99,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.boundaries import apply_boundaries, interior_force_mask
-from ..ops.kernels.muscl_split import muscl_step_split
-from ..ops.kernels.stencil import stencil_step
+from ..ops.boundaries import interior_force_mask
 from ..ops.kernels.timestep import advance
 from ..ops.timestep import max_wave_speed
 from ..state import DomainStatic, FlowState, StepCarry
@@ -190,22 +189,25 @@ class HaloDeepBlocks:
     docstring): ``layout`` is every block of the mesh, ``blocks`` this
     rank's (all of them in one process).  ``run_batch`` advances the
     carry, which lives on the first local block's device, by
-    ``n_windows`` windows."""
+    ``n_windows`` windows.  ``window`` is the most steps a window may
+    take; ``self.window`` the most whose pads fit every block.  ``step``
+    is one step of one array (``Simulation._step``); ``scheme`` gives
+    only its radius, and its name to an error."""
 
     def __init__(self, mesh: Mesh, scheme, params, ts_params,
                  boundaries: Sequence, domain, state: FlowState,
                  static: DomainStatic, comp, window: int, end_time: float,
-                 muscl_variant=None, dt_mode: str = "window",
-                 dt_safety: float = 1.05):
+                 step, dt_mode: str = "window", dt_safety: float = 1.05):
         self.mesh = mesh
         self.scheme = scheme
         self.params = params
         self.ts_params = ts_params
-        self.window = window
         self.end_time = end_time
-        self.muscl_variant = muscl_variant
+        self.step = step
         self.dt_safety = dt_safety
         self.logical = (domain.rows, domain.cols)
+        geometry = sorted(block_geometry(*self.logical, mesh.shape).items())
+        self.window = window = self._fit(window, [own for _, own in geometry])
         self.pads = halo_pads(window, scheme.radius)
         # Fixed dt opts out of the CFL law: its windows run lock-step, as
         # the JAX package's (hipims_tpu/parallel/halo_deep.py:293-298).
@@ -219,8 +221,7 @@ class HaloDeepBlocks:
         self.device_group = distributed.device_group()
         pr, pc = self.pads
         self.layout, self.blocks = [], []
-        for (iy, ix), own in sorted(block_geometry(*self.logical,
-                                                   mesh.shape).items()):
+        for (iy, ix), own in geometry:
             r0, nr, c0, nc = own
             b = Block(index=(iy, ix), rank=int(mesh.ranks[iy, ix]),
                       device=mesh.devices[iy, ix], own=own,
@@ -245,6 +246,29 @@ class HaloDeepBlocks:
         self._staging = {}
         self.load_state(state)
         self.load_comp(comp)
+
+    def _fit(self, window, spans):
+        """``window`` shrunk until its halo pads fit the smallest of the
+        blocks ``spans`` (the role the reference's rollback limit, overlap
+        - 1, plays: src/Domain/CDomainBase.cpp:163-174).  Where not even
+        one step fits, this raises (module docstring)."""
+        min_r = min(nr for _, nr, _, _ in spans)
+        min_c = min(nc for _, _, _, nc in spans)
+
+        def fits(w):
+            pr, pc = halo_pads(w, self.scheme.radius)
+            return pr <= min_r and pc <= min_c
+
+        while window > 1 and not fits(window):
+            window -= 1
+        if not fits(window):
+            raise ValueError(
+                f"mesh {self.mesh.shape} blocks of {min_r}x{min_c} cells are "
+                f"too small for any halo window: one step of "
+                f"{self.scheme.name} needs "
+                f"{halo_pads(1, self.scheme.radius)} halo cells; "
+                "use fewer blocks")
+        return window
 
     # ------------------------------------------------------------------
     # The full grid in and out.
@@ -430,29 +454,11 @@ class HaloDeepBlocks:
     # ------------------------------------------------------------------
     # Steps.
     def _one_step(self, b: Block, st: FlowState, cm, carry: StepCarry):
-        """Boundaries and the fused step on one extended block; returns
-        (new_state, owned max speed, new comp).  No exchange, no
-        controller."""
-        c = _carry_on(carry, b.device)
-        params = self.params
-        if b.boundaries:
-            with span("hipims.step.boundaries"):
-                bout = apply_boundaries(b.boundaries, st, b.static, c.t,
-                                        c.dt, c.t_hydro, params,
-                                        b.force_mask, comp=cm)
-            st, cm = bout if cm is not None else (bout, None)
-        mesh = dict(origin=b.origin, logical=self.logical,
-                    speed_window=b.speed_window)
-        with span("hipims.step.scheme"):
-            if self.scheme.name == "muscl-hancock":
-                out = muscl_step_split(st, b.static, c.dt, params,
-                                       self.muscl_variant, cm, **mesh)
-            else:
-                out = stencil_step(self.scheme.name, st, b.static, c.dt,
-                                   params, comp=cm,
-                                   simplified_speed=self.ts_params
-                                   .simplified_speed, **mesh)
-        return out[0], out[1], (out[2] if cm is not None else None)
+        """``step`` on one extended block; returns (new_state, owned max
+        speed, new comp).  No exchange, no controller."""
+        return self.step(st, b.static, cm, _carry_on(carry, b.device),
+                         b.boundaries, b.force_mask, origin=b.origin,
+                         logical=self.logical, speed_window=b.speed_window)
 
     def _step_all(self, states, comps, carry):
         """One step of every local block from the same carry; returns the

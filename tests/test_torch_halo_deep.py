@@ -23,8 +23,9 @@ from hipims_tpu_torch.domain import Domain
 from hipims_tpu_torch.io.raster import read_raster
 from hipims_tpu_torch.io.xml_config import load_config
 from hipims_tpu_torch.ops import boundaries as B
+from hipims_tpu_torch.ops.kernels.stencil import stencil_step
 from hipims_tpu_torch.parallel import make_mesh
-from hipims_tpu_torch.runtime import Simulation, SimulationConfig
+from hipims_tpu_torch.runtime import Simulation, SimulationConfig, simulation
 from hipims_tpu_torch.runtime.checkpoint import load_checkpoint
 from hipims_tpu_torch.tools.model_builder import build_dam_break
 
@@ -175,6 +176,46 @@ def test_window_shrinks_to_fit_the_blocks():
                            forecast_window=8)
     sim = Simulation(dam(), cfg, mesh=mesh(8, (4, 2)))
     assert sim.window == 7
+
+
+@pytest.mark.parametrize("sync,window", [("timestep", 1), ("forecast", 4)])
+@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock", "inertial"])
+def test_the_mesh_steps_through_the_simulations_step(monkeypatch, scheme,
+                                                     sync, window):
+    """Every step of every block goes through the simulation's own names
+    of the scheme kernels (``Simulation._step``), each with its block's
+    owned window, and the counted run equals the plain one bit for
+    bit."""
+    kw = dict(scheme=scheme, sync_method=sync, forecast_window=window)
+    plain = run(dam(), mesh(4, (2, 2)), **kw)
+    windows = []
+    for name in ("stencil_step", "muscl_step_split"):
+        def step(*args, _fn=getattr(simulation, name), **kwargs):
+            windows.append(kwargs["speed_window"])
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(simulation, name, step)
+    sim = run(dam(), mesh(4, (2, 2)), **kw)
+    assert sim.window == window and sim.windows > 0
+    assert len(windows) == sim.windows * sim.window * 4
+    assert set(windows) == {b.speed_window for b in sim._blocks.layout}
+    assert_equal_runs(plain, sim)
+
+
+def test_planted_step_fault_reaches_the_mesh(monkeypatch):
+    """A first-order step put in place of the simulation's MUSCL kernels,
+    as the benchmark plants its fault, changes a MUSCL mesh run."""
+    plain = run(dam(), mesh(4, (2, 2)), scheme="muscl-hancock")
+
+    def first_order(state, static, dt, params, variant=None, comp=None,
+                    **options):
+        return stencil_step("godunov", state, static, dt, params, comp=comp,
+                            **options)
+
+    monkeypatch.setattr(simulation, "muscl_step_split", first_order)
+    faulty = run(dam(), mesh(4, (2, 2)), scheme="muscl-hancock")
+    assert faulty.total_steps > 0
+    assert not torch.equal(plain.state.z, faulty.state.z)
 
 
 def test_resume_across_mesh_and_one_device(tmp_path):
