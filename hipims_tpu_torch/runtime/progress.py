@@ -55,7 +55,8 @@ class ProgressReporter:
         total = sim.total_steps
         self.log.block("Simulation complete")
         self.log.line(f"  Simulated:   {sim.t:.1f} s in {wall:.1f} s wall")
-        self.log.line(f"  Iterations:  {total} (+{sim.total_skipped} idle)")
+        self.log.line(f"  Iterations:  {total} (+{sim.total_skipped} idle), "
+                      f"{sim.batches_bounded} batches bounded by their sync")
         if wall > 0:
             self.log.line(f"  Throughput:  {total * cells / wall / 1e6:.1f} "
                           f"Mcells/s")
