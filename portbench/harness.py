@@ -295,8 +295,15 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
         if loaded:
             raise ForbiddenModules(loaded)
         peaks = everyone((setup_peak, window_peak))
-        busy = everyone(tr.busy_s()) if trace_on else None
+        busy = everyone((tr.busy_s(), tr.nccl_s())) if trace_on else None
         program = seg.outputs()
+        # Every rank frees the program's state before the last
+        # collective, so that the reference finds each card's memory free.
+        del seg
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        barrier()
         if ranks > 1:
             # Every collective of the run is behind: the other ranks are
             # done, and rank 0 goes on alone.
@@ -342,9 +349,18 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
                 if value is not None:
                     result["metrics"][m["name"]] = {"value": value,
                                                     "unit": m["unit"]}
-            # The device's busy seconds averaged over the cards; the
-            # readers and the breakdown read rank 0's.
-            busy_s, window_s = sum(busy) / len(busy), tr.window_s
+            # The device's busy seconds, and the NCCL kernels' kept
+            # apart, averaged over the cards; the readers and the
+            # breakdown read rank 0's.
+            busy_s = sum(b for b, _ in busy) / len(busy)
+            nccl_s = sum(n for _, n in busy) / len(busy)
+            window_s = tr.window_s
+            with_nccl = trace.seconds(trace.union(tr.device_ops, tr.window))
+            say("device busy s per card: "
+                + ", ".join(f"{b:.6f}" for b, _ in busy)
+                + "; NCCL kernels apart: "
+                + ", ".join(f"{n:.6f}" for _, n in busy)
+                + f"; rank 0's busy with them: {with_nccl:.6f}")
             breakdown = {"device_ops": trace.device_time_by_name(tr),
                          "idle_gaps": trace.idle_by_host(tr)}
             del tr
@@ -367,20 +383,20 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             result["device"] = {"platform": "cpu", "kind": "cpu",
                                 "count": ranks, "memory_peak_bytes": 0}
         if trace_on:
-            result["device"].update(busy_s=busy_s, window_s=window_s)
+            result["device"].update(busy_s=busy_s, window_s=window_s,
+                                    nccl_s=nccl_s)
             result["breakdown"] = breakdown
 
-        del seg, segs, warm
-        gc.collect()
+        devices = reference_devices(config, device)
         if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
         r0 = time.perf_counter()
         model = reference.load(xml)
         if reference_cache is not None and "outputs" in reference_cache:
             ref = reference_cache["outputs"]
         else:
-            ref = reference_outputs(model, traffic, device)
+            ref = reference_outputs(model, traffic, devices)
             if reference_cache is not None:
                 reference_cache["outputs"] = ref
         ref_s = time.perf_counter() - r0
@@ -392,9 +408,10 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             lambda state, t, t_hydro: reference.settle(model, state, t,
                                                        t_hydro))
         correct, compared = check.judge(numbers, limits)
-        say(f"reference: {ref_s:.3f} s, {numbers['reference_steps']} steps"
-            + (f", peak {torch.cuda.max_memory_allocated(device)} B on "
-               f"{device}" if on_card else ""))
+        say(f"reference: {ref_s:.3f} s, {numbers['reference_steps']} steps "
+            "on " + ", ".join(
+                f"{d} (peak {torch.cuda.max_memory_allocated(d)} B)"
+                if on_card else str(d) for d in devices))
         say("readings: " + json.dumps(numbers))
         result["correct"] = correct
         result["compared"] = compared
@@ -405,13 +422,27 @@ def run_cell(workload, seed, seconds, trace_on, *, device="cuda",
             shutil.rmtree(workdir, ignore_errors=True)
 
 
-def reference_outputs(model, traffic, device):
+def reference_devices(config, device):
+    """The devices of the float64 reference for a run of ``config`` on
+    ``device``: one for each rank of its ``layout`` where that has
+    several (the run's cards, ``cuda:0`` on; on the CPU, the CPU for
+    each), else ``device`` alone."""
+    n = int((config.get("layout") or {}).get("ranks", 1))
+    if n > 1 and torch.device(device).type == "cuda":
+        return [f"cuda:{k}" for k in range(n)]
+    return [device] * n
+
+
+def reference_outputs(model, traffic, devices):
     """The float64 reference's outputs for ``model`` (``reference.load``
     of the cell's XML) at each of the traffic's sync times (its output
-    times and the segment's end), keyed by time."""
+    times and the segment's end), keyed by time: the whole grid on one
+    device, or row blocks over several."""
     times = sorted({float(t) for t in traffic["output_times_s"]}
                    | {float(traffic["segment_s"])})
-    return dict(zip(times, reference.run(model, times, device)))
+    outs = (reference.run(model, times, devices[0]) if len(devices) == 1
+            else reference.run_blocks(model, times, devices))
+    return dict(zip(times, outs))
 
 
 def print_compared(result, stream=sys.stderr):

@@ -64,7 +64,7 @@ def planted_readings(workload, seed, fault, reference, device, sizes=None):
     planted, in the program's place, against ``reference`` (the sound
     reference's outputs of the same seed)."""
     from portbench import check, harness, model_dir, spec
-    from portbench.reference import model as reference
+    from portbench.reference import model
 
     bench = spec.benchmark()
     cell = spec.cell(bench, workload)
@@ -76,8 +76,9 @@ def planted_readings(workload, seed, fault, reference, device, sizes=None):
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
         xml = model_dir.write(Path(tmp) / "model", config, traffic, seed)
         with planted(fault):
-            outs = harness.reference_outputs(reference.load(xml), traffic,
-                                             device)
+            outs = harness.reference_outputs(
+                model.load(xml), traffic,
+                harness.reference_devices(config, device))
     end = outs[float(traffic["segment_s"])]
     return check.readings(
         end, reference, lambda kind, t: check.field(kind, outs[t]["state"]),

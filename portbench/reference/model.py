@@ -11,7 +11,10 @@ time) and each cell's coarse cell, and the time controller's settings.
 It never shifts the vertical datum: that is a single-precision device.
 Then it steps the segment with ``swe.py``, as the program's host loop
 does: the boundaries, the scheme step, the CFL reduction and ``advance``
-at every step, a suspension at each sync time.
+at every step, a suspension at each sync time.  ``run`` steps the whole
+grid on one device; ``run_blocks`` steps it in row blocks, one on each
+of several devices, with the same arithmetic on every cell, so the two
+give the same bits.
 
 Nothing here imports the program under test.
 """
@@ -226,51 +229,73 @@ def settle(model: Model, state, t, t_hydro):
     return z.numpy()
 
 
+def _forcings_on(model: Model, device, rows=slice(None)):
+    """The forcings of ``model`` on ``device``, a gridded one's row index
+    cut to the domain's ``rows``."""
+    return [f._replace(values=f.values.to(device))
+            if isinstance(f, Forcing) else
+            f._replace(frames=f.frames.to(device),
+                       rows=f.rows[rows].to(device), cols=f.cols.to(device))
+            for f in model.forcings]
+
+
+def _force(z, zmax, zb, mask, forcings, carry):
+    """``z`` with each forcing applied for the step that ``carry`` is
+    about to take."""
+    for f in forcings:
+        if isinstance(f, Gridded):
+            z = swe.gridded_forcing(z, zmax, zb, mask, f.frames, f.rows,
+                                    f.cols, f.interval, carry.t, carry.dt,
+                                    carry.t_hydro)
+        else:
+            z = swe.uniform_forcing(z, zmax, zb, mask, f.values, f.interval,
+                                    f.length, f.is_loss, carry.t, carry.dt,
+                                    carry.t_hydro)
+    return z
+
+
+def _start(model: Model, targets, device):
+    """The time controller's first carry on ``device``; refuses a sync
+    time past the gridded rain's last frame."""
+    last = min((len(f.frames) * f.interval for f in model.forcings
+                if isinstance(f, Gridded)), default=math.inf)
+    if max(targets, default=0.0) >= last:
+        raise ValueError(f"the gridded rain's frames end at {last} s, "
+                         f"before the last sync time {max(targets)} s")
+    f64 = dict(dtype=torch.float64, device=device)
+    zero = torch.zeros((), **f64)
+    count = torch.zeros((), dtype=torch.long, device=device)
+    return swe.Carry(zero, torch.full((), model.dt0, **f64), zero, count,
+                     count)
+
+
+def _tolerance(target):
+    return max(1e-5, 8.0 * float(torch.finfo(torch.float64).eps)
+               * abs(target))
+
+
 def run(model: Model, targets, device, check_every=64):
     """Step ``model`` from its initial state through each sync time in
     ``targets``, yielding at each a dict of its clock ``t``, its
     ``t_hydro``, its successful ``steps`` and its ``state`` (z, zmax, qx,
     qy, zb) as host float64 arrays."""
+    carry = _start(model, targets, device)
     f64 = dict(dtype=torch.float64, device=device)
     zb = torch.as_tensor(model.zb, **f64)
     z = torch.as_tensor(model.z0, **f64)
     state = (z, z.clone(), torch.zeros_like(z), torch.zeros_like(z))
     n = torch.full_like(z, model.manning)
     mask = _force_mask(z.shape, RADIUS[model.scheme], device)
-    last = min((len(f.frames) * f.interval for f in model.forcings
-                if isinstance(f, Gridded)), default=math.inf)
-    if max(targets, default=0.0) >= last:
-        raise ValueError(f"the gridded rain's frames end at {last} s, "
-                         f"before the last sync time {max(targets)} s")
-    forcings = [f._replace(values=f.values.to(device))
-                if isinstance(f, Forcing) else
-                f._replace(frames=f.frames.to(device),
-                           rows=f.rows.to(device), cols=f.cols.to(device))
-                for f in model.forcings]
+    forcings = _forcings_on(model, device)
     step = (swe.godunov_step if model.scheme == "godunov"
             else swe.muscl_step)
-    zero = torch.zeros((), **f64)
-    carry = swe.Carry(zero, torch.full((), model.dt0, **f64), zero,
-                      torch.zeros((), dtype=torch.long, device=device),
-                      torch.zeros((), dtype=torch.long, device=device))
     quite_small = model.vs * 10.0
     for target in targets:
         sync = torch.full((), float(target), **f64)
-        tol = max(1e-5, 8.0 * float(torch.finfo(torch.float64).eps)
-                  * abs(target))
-        while float(carry.t) < target - tol:
+        while float(carry.t) < target - _tolerance(target):
             for _ in range(check_every):
                 z, zmax, qx, qy = state
-                for f in forcings:
-                    if isinstance(f, Gridded):
-                        z = swe.gridded_forcing(
-                            z, zmax, zb, mask, f.frames, f.rows, f.cols,
-                            f.interval, carry.t, carry.dt, carry.t_hydro)
-                    else:
-                        z = swe.uniform_forcing(
-                            z, zmax, zb, mask, f.values, f.interval,
-                            f.length, f.is_loss, carry.t, carry.dt,
-                            carry.t_hydro)
+                z = _force(z, zmax, zb, mask, forcings, carry)
                 state = step(z, zmax, qx, qy, zb, n, carry.dt, model.dx,
                              model.dx, model.vs, model.friction)
                 speed = swe.max_wave_speed(*state, zb, quite_small)
@@ -281,3 +306,107 @@ def run(model: Model, targets, device, check_every=64):
         yield {"t": float(carry.t), "t_hydro": float(carry.t_hydro),
                "steps": int(carry.steps),
                "state": [a.cpu().numpy() for a in (*state, zb)]}
+
+
+class Block:
+    """One row block of ``run_blocks``: the domain's rows ``lo`` to
+    ``hi`` on ``device``, held with the halo rows its step reads (none
+    past the domain's edge).  ``own`` are the block's rows within those
+    it holds; ``state`` is (z, zmax, qx, qy); ``mask`` is the whole
+    domain's forcing mask, on the host."""
+
+    def __init__(self, model: Model, mask, lo, hi, device):
+        rows = model.zb.shape[0]
+        ring = RADIUS[model.scheme]
+        self.device = device
+        top, bottom = max(lo - ring, 0), min(hi + ring, rows)
+        self.own = slice(lo - top, hi - top)
+        held = slice(top, bottom)
+        f64 = dict(dtype=torch.float64, device=device)
+        self.zb = torch.as_tensor(model.zb[held], **f64)
+        z = torch.as_tensor(model.z0[held], **f64)
+        self.state = (z, z.clone(), torch.zeros_like(z), torch.zeros_like(z))
+        self.n = torch.full_like(z, model.manning)
+        self.mask = mask[held].to(device)
+        self.forcings = _forcings_on(model, device, held)
+
+
+def row_blocks(rows, n):
+    """(lo, hi) of ``n`` row blocks of ``rows`` rows, as even as the rows
+    allow, the larger first."""
+    sizes = [rows // n + (k < rows % n) for k in range(n)]
+    edges = np.cumsum([0] + sizes)
+    return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:])]
+
+
+def trade_halos(blocks):
+    """Copy into each block's halo rows the rows its neighbours own."""
+    for low, high in zip(blocks, blocks[1:]):
+        for a, b in zip(low.state, high.state):
+            k = len(a) - low.own.stop        # low's rows past its own
+            a[low.own.stop:].copy_(b[high.own.start:high.own.start + k])
+            k = high.own.start               # high's rows before its own
+            b[:k].copy_(a[low.own.stop - k:low.own.stop])
+
+
+def run_blocks(model: Model, targets, devices, check_every=64):
+    """``run`` in row blocks, one on each of ``devices``, which may
+    repeat: yields what ``run`` yields, the same bits on the card.  Each
+    block steps its own rows with the halo rows its step reads (one for
+    Godunov, two for MUSCL-Hancock), which the blocks trade after every
+    step; the domain's edge ring stays where ``run`` has it.  The wave
+    speed's maximum is taken over the blocks' maxima of their own rows,
+    ``advance`` runs once on the first device, and each block forces with
+    a copy of its carry.  Each cell's arithmetic is ``run``'s, so the
+    blocks agree with it bit for bit wherever the library computes an
+    element the same wherever it lies in an array: on the card; on the
+    CPU, where no vectorised loop leaves a scalar tail that the whole
+    grid does not (its pow rounds the two differently)."""
+    rows = model.zb.shape[0]
+    ring = RADIUS[model.scheme]
+    bounds = row_blocks(rows, len(devices))
+    if min(hi - lo for lo, hi in bounds) < ring:
+        raise ValueError(f"{rows} rows make {len(devices)} blocks of fewer "
+                         f"than the {ring} halo rows that each lends")
+    first = devices[0]
+    carry = _start(model, targets, first)
+    mask = _force_mask(model.zb.shape, ring, "cpu")
+    blocks = [Block(model, mask, lo, hi, d)
+              for (lo, hi), d in zip(bounds, devices)]
+    step = (swe.godunov_step if model.scheme == "godunov"
+            else swe.muscl_step)
+    quite_small = model.vs * 10.0
+    for target in targets:
+        sync = torch.full((), float(target), dtype=torch.float64,
+                          device=first)
+        while float(carry.t) < target - _tolerance(target):
+            for _ in range(check_every):
+                # Every block's copy of the carry goes out before any
+                # block's step, which would otherwise run ahead of the
+                # copies on the first card and hold the others back.
+                carries = [carry._replace(t=carry.t.to(b.device),
+                                          dt=carry.dt.to(b.device),
+                                          t_hydro=carry.t_hydro.to(b.device))
+                           for b in blocks]
+                speeds = []
+                for b, c in zip(blocks, carries):
+                    z, zmax, qx, qy = b.state
+                    z = _force(z, zmax, b.zb, b.mask, b.forcings, c)
+                    b.state = step(z, zmax, qx, qy, b.zb, b.n, c.dt,
+                                   model.dx, model.dx, model.vs,
+                                   model.friction)
+                    speeds.append(swe.max_wave_speed(
+                        *(p[b.own] for p in b.state), b.zb[b.own],
+                        quite_small))
+                trade_halos(blocks)
+                speed = torch.stack([v.to(first) for v in speeds]).amax()
+                carry = swe.advance(carry, speed, sync, model.duration,
+                                    model.dx, model.courant)
+            if not np.isfinite(float(carry.t)):
+                raise RuntimeError(f"reference diverged at t={target}")
+        yield {"t": float(carry.t), "t_hydro": float(carry.t_hydro),
+               "steps": int(carry.steps),
+               "state": [np.concatenate([a[b.own].cpu().numpy()
+                                         for a, b in zip(plane, blocks)])
+                         for plane in (*zip(*(b.state for b in blocks)),
+                                       [b.zb for b in blocks])]}

@@ -107,6 +107,32 @@ def test_breakdown_labels_gaps_by_host_activity(ctx):
     assert ops["muscl_correct_kernel"] == pytest.approx(3e-3)
 
 
+NCCL = "ncclDevKernel_AllReduce_Sum_f64_RING_LL(ncclDevKernelArgsStorage)"
+
+
+@pytest.mark.parametrize("name", [NCCL, "void NCCLKernel_SendRecv<4>()"])
+def test_nccl_kernels_are_kept_out_of_the_busy_time(ctx, name):
+    # The readers' values and the idle labels without NCCL's kernels.
+    before = {m["name"]: read(m["name"], ctx) for m in spec.benchmark()
+              ["per_layer"]}
+    gaps = trace.idle_by_host(ctx.trace)
+    assert ctx.trace.nccl_s() == 0.0
+    # One in the 4-6 ms gap under the synchronising read, overlapping
+    # nothing, and one over the kernel at 6-7 ms.
+    ctx.trace.device_ops += [(name, 4 * MS, 5 * MS, True),
+                             (name, 6.5 * MS, 7.5 * MS, True)]
+    assert ctx.trace.busy_s() == pytest.approx(5e-3)
+    assert ctx.trace.nccl_s() == pytest.approx(2e-3)
+    assert trace.idle_by_host(ctx.trace) == gaps
+    after = {n: read(n, ctx) for n in before}
+    # Two launches more over the three steps; no other reader moves.
+    assert after.pop("launches_per_step") == pytest.approx(5 / 3)
+    before.pop("launches_per_step")
+    assert after == before
+    ops = dict(trace.device_time_by_name(ctx.trace))
+    assert ops[trace.short_name(name)] == pytest.approx(2e-3)
+
+
 def test_short_name():
     assert trace.short_name("void (anonymous namespace)::muscl_correct_"
                             "kernel<float, true, (SlopeSource)0>(float "

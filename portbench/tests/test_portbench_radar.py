@@ -6,10 +6,12 @@ not correct with the program's frame index one record ahead, or with
 rain on the ring that the forcing leaves out.  The reference forces
 exactly the simulated time: over runs that idle at their syncs, however
 many idle steps a batch ends with, and under fixed steps whose
-hydrological interval reaches 1 s exactly.  The program still drops the
-forcing that an idle step finds owed (its ``advance`` resets ``t_hydro``
-on an idle step), and a sync in mid-segment shows it as a gap of just
-that volume: the program's fault, left for it to mend.
+hydrological interval reaches 1 s exactly.  A program whose ``advance``
+resets ``t_hydro`` on an idle step drops the forcing that step finds
+owed, and a sync in mid-segment shows it as a gap of just that volume,
+which the check fails; one that keeps it drops nothing and passes.  Both
+rules are planted in the test, so the check is held whichever rule the
+program has.
 
     python -m pytest --noconftest -p no:cacheprovider portbench/tests
 """
@@ -170,31 +172,47 @@ def test_the_reference_codes_rule_misses_the_simulated_time(dt):
     assert abs(forced - simulated) > 0.2
 
 
-def test_the_program_drops_forcing_at_a_sync(tmp_path, monkeypatch):
-    """A sync at 90 s, where steps exceed the hydrological interval: the
-    program's idle steps after it reset ``t_hydro`` and drop the forcing
-    owed, which the reference applies at the next step.  The gap in the
-    water's volume is that forcing, together with what each side still
-    owes at the segment's end.  A program fault (ROADMAP queue 3, item
-    1), left standing here for its own fix: once ``advance`` keeps
-    ``t_hydro`` on an idle step, nothing is dropped, and this test's
-    first assertion is to be turned around.  One frame rains all through
-    (its record is longer than the segment), so a second of forcing is
-    the same volume whenever it falls."""
+def _drops(t_hydro, dt_eff):
+    """The rule that drops forcing (the reference code's): ``t_hydro``
+    reset to the step taken once it is past 1 s, to 0 on an idle step."""
+    return torch.where(t_hydro > swe.TIMESTEP_HYDROLOGICAL, dt_eff,
+                       t_hydro + dt_eff)
+
+
+def _keeps(t_hydro, dt_eff):
+    """The reference's rule: kept on an idle step, reset at >= 1 s."""
+    return torch.where(dt_eff > 0.0, torch.where(
+        t_hydro >= swe.TIMESTEP_HYDROLOGICAL, dt_eff, t_hydro + dt_eff),
+        t_hydro)
+
+
+@pytest.mark.parametrize("rule", [_drops, _keeps], ids=["drops", "keeps"])
+def test_the_program_drops_forcing_at_a_sync(tmp_path, monkeypatch, rule):
+    """A sync at 90 s, where steps exceed the hydrological interval, with
+    the program's ``t_hydro`` set by a rule planted here.  Under
+    ``drops`` the idle steps after the sync reset ``t_hydro`` and drop
+    the forcing owed, which the reference applies at the next step: the
+    gap in the water's volume is that forcing, together with what each
+    side still owes at the segment's end, and the run is not correct.
+    Under ``keeps`` nothing is dropped and the run is correct.  One frame
+    rains all through (its record is longer than the segment), so a
+    second of forcing is the same volume whenever it falls."""
     steady = dict(RADAR, interval_s=200.0)
     workload = add_cell(tmp_path, "radar", initial="dry", segment_s=150.0,
                         output_times_s=(90.0, 150.0), boundaries=[steady])
     dropped = []
     real = simulation.advance
 
-    def counted(carry, speed, sync, end, dx, ts):
+    def planted(carry, speed, sync, end, dx, ts):
         new = real(carry, speed, sync, end, dx, ts)
+        new = new._replace(t_hydro=rule(carry.t_hydro,
+                                        torch.clamp(carry.dt, min=0.0)))
         if float(carry.dt) <= 0.0 and float(new.t_hydro) < float(
                 carry.t_hydro):
             dropped.append((float(carry.t), float(carry.t_hydro)))
         return new
 
-    monkeypatch.setattr(simulation, "advance", counted)
+    monkeypatch.setattr(simulation, "advance", planted)
     # Batches of a fixed 64 steps, so the idle steps do not hang on the
     # machine's speed.
     monkeypatch.setattr(simulation.Simulation, "_adapt_batch",
@@ -203,6 +221,10 @@ def test_the_program_drops_forcing_at_a_sync(tmp_path, monkeypatch):
     # interval (not on every seed: a landing can fall short of it).
     seed = 2147484002
     res, numbers = run(tmp_path, workload, seed)
+    if rule is _keeps:
+        assert not dropped
+        assert res["correct"], res["compared"]
+        return
     # The warm-up segment and the timed one drop the same, at 90 s and at
     # the end.
     assert len(dropped) % 2 == 0 and dropped[:len(dropped) // 2] == \

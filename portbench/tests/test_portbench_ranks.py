@@ -1,9 +1,10 @@
 """A cell on several ranks, added by files alone, run on the CPU: four
 gloo ranks of a 2x2 lock-step mesh (``ranks.launch``, the path that
 ``run.py`` takes for a cell on four chips), judged against the float64
-reference; the same run with the exchange between ranks left out (halo
-strips never refreshed), which has to come out not correct; and a rank
-killed mid-window, which has to end the run.
+reference in row blocks, one for each rank; the same run with the
+exchange between ranks left out (halo strips never refreshed), which has
+to come out not correct; and a rank killed mid-window, which has to end
+the run.
 
     python -m pytest --noconftest -p no:cacheprovider portbench/tests
 """
@@ -70,6 +71,8 @@ def test_four_ranks_are_correct(tmp_path):
     assert res["correct"], res["compared"]
     assert res["device"]["count"] == 4
     assert set(res["metrics"]) == {"sim_speed", "peak_mem_GiB", "setup_s"}
+    # Judged by the reference in one row block for each rank.
+    assert " steps on cpu, cpu, cpu, cpu\n" in stdout
 
 
 def test_exchange_left_out_is_not_correct(tmp_path):

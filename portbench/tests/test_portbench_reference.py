@@ -123,3 +123,22 @@ def test_reference_imports_nothing_of_the_program():
             else:
                 continue
             assert not FORBIDDEN & set(tops), (path.name, tops)
+
+
+def test_readings_plant_a_fault_against_the_sound_reference(tmp_path):
+    """``readings.py --faults``: the first-order step planted in
+    MUSCL-Hancock's place, read against the sound reference of the same
+    seed at a tiny size, keeps the water's mass and moves the depths."""
+    from portbench import harness, model_dir, readings, spec
+    from portbench.reference import model as reference
+
+    sizes = {"rows": 24, "cols": 40, "segment_s": 8.0,
+             "output_times_s": [8.0]}
+    config = dict(spec.config(spec.benchmark(), "malpasset-10m"), **sizes)
+    traffic = dict(spec.traffic("dambreak"), **sizes)
+    xml = model_dir.write(tmp_path, config, traffic, 5)
+    sound = harness.reference_outputs(reference.load(xml), traffic, ["cpu"])
+    got = readings.planted_readings("malpasset-10m.dambreak", 5, "godunov",
+                                    sound, "cpu", sizes)
+    assert got["state_depth_volume_gap"] < 1e-9
+    assert got["raster_depth_gap_mean_m"] > 0.1

@@ -4,6 +4,14 @@ spans around ``run_to`` and ``emit_output`` (``record_function`` ranges
 named ``portbench.<call>``), the device's busy time as the union of its
 operations' intervals, and the idle gaps, each labelled by the span and
 the innermost host operation under way at its middle.
+
+NCCL's kernels (``is_nccl``: names that start with ``nccl``) are kept
+apart from the busy time: a collective's kernel spins on the card until
+every rank has reached it, so its interval is the wait for the host and
+the other ranks, not work.  Their union is ``Trace.nccl_s``, the time
+the exchange holds the card, which the busy time counts as idle; the
+kernel names and times (``device_time_by_name``) and the launches
+(``Trace.kernels``) still list them.
 """
 
 from __future__ import annotations
@@ -37,30 +45,19 @@ class Trace:
         return [op for op in self.device_ops if op[3]]
 
     def busy_intervals(self):
-        """The union of the device operations' intervals, clipped to the
-        window, as sorted disjoint (start, end) arrays."""
-        w0, w1 = self.window
-        if not self.device_ops:
-            return np.zeros(0), np.zeros(0)
-        s = np.array([op[1] for op in self.device_ops], dtype=np.float64)
-        e = np.array([op[2] for op in self.device_ops], dtype=np.float64)
-        s, e = np.clip(s, w0, w1), np.clip(e, w0, w1)
-        keep = e > s
-        s, e = s[keep], e[keep]
-        order = np.argsort(s, kind="stable")
-        s, e = s[order], np.maximum.accumulate(e[order])
-        if s.size == 0:
-            return s, e
-        new = np.ones(s.size, dtype=bool)
-        new[1:] = s[1:] > e[:-1]
-        starts = s[new]
-        idx = np.flatnonzero(new)
-        ends = e[np.append(idx[1:] - 1, s.size - 1)]
-        return starts, ends
+        """The union of the device operations' intervals, NCCL's kernels
+        left out, clipped to the window, as sorted disjoint (start, end)
+        arrays."""
+        return union([op for op in self.device_ops if not is_nccl(op[0])],
+                     self.window)
 
     def busy_s(self):
-        s, e = self.busy_intervals()
-        return float((e - s).sum()) * 1e-9
+        return seconds(self.busy_intervals())
+
+    def nccl_s(self):
+        """Seconds of the union of NCCL's kernels in the window."""
+        return seconds(union([op for op in self.device_ops
+                              if is_nccl(op[0])], self.window))
 
     def gaps(self):
         """(start, end) of each idle stretch in the window."""
@@ -70,6 +67,44 @@ class Trace:
         ge = np.concatenate([s, [w1]])
         keep = ge > gs
         return gs[keep], ge[keep]
+
+
+NCCL = re.compile(r"(void\s+)?nccl", re.IGNORECASE)
+
+
+def is_nccl(name):
+    """An NCCL kernel: a name that starts with ``nccl``, in any case,
+    after a template's ``void``."""
+    return NCCL.match(name) is not None
+
+
+def union(ops, window):
+    """The union of the intervals of ``ops`` ((name, start, end, ...)),
+    clipped to ``window``, as sorted disjoint (start, end) arrays."""
+    w0, w1 = window
+    if not ops:
+        return np.zeros(0), np.zeros(0)
+    s = np.array([op[1] for op in ops], dtype=np.float64)
+    e = np.array([op[2] for op in ops], dtype=np.float64)
+    s, e = np.clip(s, w0, w1), np.clip(e, w0, w1)
+    keep = e > s
+    s, e = s[keep], e[keep]
+    order = np.argsort(s, kind="stable")
+    s, e = s[order], np.maximum.accumulate(e[order])
+    if s.size == 0:
+        return s, e
+    new = np.ones(s.size, dtype=bool)
+    new[1:] = s[1:] > e[:-1]
+    starts = s[new]
+    idx = np.flatnonzero(new)
+    ends = e[np.append(idx[1:] - 1, s.size - 1)]
+    return starts, ends
+
+
+def seconds(intervals):
+    """The length in seconds of disjoint (start, end) arrays in ns."""
+    s, e = intervals
+    return float((e - s).sum()) * 1e-9
 
 
 def short_name(name):
